@@ -1,0 +1,106 @@
+"""Model configuration: the fields of ``repro.configs.base`` the serving path reads.
+
+Counterpart of ``src/repro/configs/base.py`` (:class:`LayerSpec`,
+:class:`ModelConfig`, :func:`smoke_variant`).  A model is ``n_units`` repeats
+of a ``pattern`` of :class:`LayerSpec`; parameters and caches are stacked per
+pattern position with a leading ``n_units`` dimension, as in the reference.
+Fields that only the reference's other families, training or sharding read
+are left out; they arrive with the slices that port those paths.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+from typing import Dict, Tuple
+
+__all__ = ["LayerSpec", "ModelConfig", "smoke_variant"]
+
+
+@dataclass(frozen=True)
+class LayerSpec:
+    """One position in the repeating pattern unit."""
+
+    mixer: str  # 'attn' | 'attn_local' | 'mamba' | 'rwkv'
+    ffn: str    # 'dense' | 'moe' | 'rwkv_cmix'
+
+    def __post_init__(self):
+        if self.mixer not in ("attn", "attn_local", "mamba", "rwkv"):
+            raise ValueError(f"unknown mixer {self.mixer!r}")
+        if self.ffn not in ("dense", "moe", "rwkv_cmix"):
+            raise ValueError(f"unknown ffn {self.ffn!r}")
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    family: str                    # dense|moe|hybrid|ssm|encdec|vlm|audio
+    d_model: int
+    n_layers: int
+    pattern: Tuple[LayerSpec, ...]
+    vocab_size: int
+    n_heads: int = 0
+    n_kv_heads: int = 0
+    head_dim: int = 0              # 0 ⇒ d_model // n_heads
+    d_ff: int = 0
+    activation: str = "swiglu"     # swiglu|gelu|relu2
+    norm: str = "rmsnorm"          # rmsnorm|layernorm
+    use_rope: bool = True
+    rope_theta: float = 10000.0
+    rope_fraction: float = 1.0     # partial rotary
+    qkv_bias: bool = False
+    qk_norm: bool = False          # q/k RMSNorm
+    attn_window: int = 0           # sliding window for 'attn_local' mixers
+    attn_softcap: float = 0.0      # Gemma2 attention-logit softcap
+    final_softcap: float = 0.0     # Gemma2 final-logit softcap
+    post_block_norm: bool = False  # Gemma2 sandwich norms
+    tie_embeddings: bool = True
+    dtype: str = "bfloat16"        # compute dtype
+    param_dtype: str = "float32"   # master-weight dtype
+    attn_chunk_q: int = 512        # query / key chunks of the plain attention
+    attn_chunk_kv: int = 1024
+
+    def __post_init__(self):
+        if self.n_layers % len(self.pattern):
+            raise ValueError(
+                f"{self.name}: n_layers={self.n_layers} not a multiple of "
+                f"pattern len {len(self.pattern)}"
+            )
+        if any(s.mixer in ("attn", "attn_local") for s in self.pattern):
+            if not (self.n_heads > 0 and self.n_kv_heads > 0):
+                raise ValueError(f"{self.name}: attention needs n_heads and n_kv_heads")
+
+    @property
+    def n_units(self) -> int:
+        return self.n_layers // len(self.pattern)
+
+    @property
+    def resolved_head_dim(self) -> int:
+        return self.head_dim or (self.d_model // max(self.n_heads, 1))
+
+    def replace(self, **kw) -> "ModelConfig":
+        return dataclasses.replace(self, **kw)
+
+
+def smoke_variant(cfg: ModelConfig) -> ModelConfig:
+    """A reduced same-family config for CPU tests (the reference's own reduction).
+
+    Keeps the pattern but shrinks width, depth (one unit), vocab and window.
+    """
+    kw: Dict = dict(
+        d_model=64,
+        n_layers=len(cfg.pattern),
+        d_ff=128,
+        vocab_size=512,
+        dtype="float32",
+        param_dtype="float32",
+        attn_chunk_q=32,
+        attn_chunk_kv=32,
+    )
+    if cfg.n_heads:
+        kw["n_heads"] = 4
+        kw["n_kv_heads"] = max(1, 4 * cfg.n_kv_heads // max(cfg.n_heads, 1))
+        kw["head_dim"] = 16
+    if cfg.attn_window:
+        kw["attn_window"] = 16
+    return cfg.replace(name=cfg.name + "-smoke", **kw)

@@ -1,0 +1,11 @@
+"""Hand-written Hopper kernels and their plain PyTorch versions.
+
+- :mod:`.flash_attention` — fused online-softmax attention (CUDA C++,
+  ``csrc/flash_attention.cu``), replacing the Pallas TPU kernel
+  ``repro.kernels.flash_attention.flash_attention_pallas``.
+- :mod:`.ref` — dense oracles (counterpart of ``repro.kernels.ref``).
+- :mod:`._build` — builds ``csrc/*.cu`` with ``nvcc`` at first use.
+
+Dispatch is by the tensor's device: a CUDA tensor launches the kernel (or
+raises), a CPU tensor runs the plain version.
+"""

@@ -1,0 +1,116 @@
+"""Serving launcher: ``python -m repro_torch.launch.serve --arch <id> [...]``.
+
+Counterpart of ``src/repro/launch/serve.py``.  Builds the model from a seeded
+``torch.Generator``, boots the continuous-batching engine and serves a
+synthetic request stream (numpy-seeded prompts of 4–23 tokens), printing the
+throughput stats as JSON.  Runs on the card unless ``--device cpu`` is given.
+``--profile DIR`` traces the serving run with ``torch.profiler`` and writes
+``DIR/trace.json.gz`` (Chrome trace) and ``DIR/ops.txt`` (op tables by device
+and by host time); the stats then
+add the device's busy time (the sum of its kernels' durations) and idle share,
+both inflated by the profiler's own host overhead.
+
+Example:
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-2b --smoke --device cpu \
+        --requests 8 --max-new 16
+"""
+
+from __future__ import annotations
+
+import argparse
+import contextlib
+import json
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from repro_torch.configs import get_config, smoke_variant
+from repro_torch.device import resolve_device
+from repro_torch.kernels._build import build_all
+from repro_torch.models import Model
+from repro_torch.serve import ServeConfig, ServeEngine
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    ap.add_argument("--requests", type=int, default=8)
+    ap.add_argument("--max-new", type=int, default=16)
+    ap.add_argument("--max-len", type=int, default=256)
+    ap.add_argument("--slots", type=int, default=4)
+    ap.add_argument("--temperature", type=float, default=0.0)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--profile", default=None, metavar="DIR", help="trace the run into DIR")
+    args = ap.parse_args(argv)
+
+    cfg = get_config(args.arch)
+    if args.smoke:
+        cfg = smoke_variant(cfg)
+    device = resolve_device(args.device)
+    build_s = 0.0
+    if device.type == "cuda":  # build the kernels before anything is timed
+        t0 = time.perf_counter()
+        build_all()
+        build_s = time.perf_counter() - t0
+    model = Model(cfg, device=device)
+    params = model.init(torch.Generator(device=device).manual_seed(args.seed))
+    eng = ServeEngine(
+        model,
+        params,
+        ServeConfig(
+            max_len=args.max_len, slots=args.slots,
+            temperature=args.temperature, eos_token=-1, seed=args.seed,
+        ),
+        device=device,
+    )
+    del params  # the engine keeps the compute-dtype copy
+    rng = np.random.default_rng(args.seed)
+    reqs = [
+        eng.submit(rng.integers(0, cfg.vocab_size, size=int(rng.integers(4, 24))), args.max_new)
+        for _ in range(args.requests)
+    ]
+    with _profiled(args.profile, device) as prof:
+        stats = eng.run_until_drained(reqs)
+    if prof is not None:
+        stats.update(_write_profile(prof, Path(args.profile), stats["wall_s"], device))
+    if not all(r.done for r in reqs):
+        raise RuntimeError("engine stopped with requests still pending")
+    stats["kernel_build_s"] = build_s
+    stats["device"] = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
+    print(json.dumps(stats, indent=1))
+    return 0
+
+
+@contextlib.contextmanager
+def _profiled(out_dir, device):
+    if out_dir is None:
+        yield None
+        return
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if device.type == "cuda" else [])
+    with profile(activities=acts) as prof:
+        yield prof
+
+
+def _write_profile(prof, out_dir: Path, wall_s: float, device) -> dict:
+    out_dir.mkdir(parents=True, exist_ok=True)
+    prof.export_chrome_trace(str(out_dir / "trace.json.gz"))
+    ops = prof.key_averages()
+    sorts = (["self_device_time_total"] if device.type == "cuda" else []) + ["self_cpu_time_total"]
+    (out_dir / "ops.txt").write_text("\n".join(f"sorted by {k}\n{ops.table(sort_by=k, row_limit=40)}" for k in sorts))
+    if device.type != "cuda":
+        return {"profile_dir": str(out_dir)}
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_s = sum(e.time_range.elapsed_us() for e in kernels) / 1e6
+    return {"profile_dir": str(out_dir), "device_kernels": float(len(kernels)),
+            "device_busy_s": busy_s, "device_idle_share": 1.0 - busy_s / max(wall_s, 1e-9)}
+
+
+if __name__ == "__main__":
+    sys.exit(main())

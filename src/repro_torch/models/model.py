@@ -1,0 +1,54 @@
+"""Model facade — counterpart of ``src/repro/models/model.py:30-62``.
+
+    model = Model(cfg)                       # on the card; Model(cfg, device="cpu") on the CPU
+    params = model.init(torch.Generator(model.device).manual_seed(0))
+    cache, logits = model.prefill(params, {"tokens": tokens}, max_len=...)
+    cache, logits = model.decode_step(params, cache, token, pos)
+
+Only the decoder-only family is ported; its functions live in
+:mod:`repro_torch.models.transformer`.
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+
+from ..device import resolve_device
+from . import transformer
+from .layers import cast_for_compute
+
+__all__ = ["Model"]
+
+
+class Model:
+    def __init__(self, cfg, device="cuda"):
+        self.cfg = cfg
+        self.device = resolve_device(device)
+
+    def init(self, generator: torch.Generator):
+        """Random f32 master weights on this model's device, drawn from ``generator``."""
+        if generator.device.type != self.device.type:
+            raise ValueError(f"generator is on {generator.device}, the model on {self.device}")
+        return transformer.init_lm(self.cfg, generator, self.device)
+
+    def cast_for_compute(self, params):
+        """The weights cast to the compute dtype once, as every use would cast them."""
+        return cast_for_compute(params, transformer._dtype(self.cfg))
+
+    def _tokens(self, tokens) -> torch.Tensor:
+        return torch.as_tensor(tokens, dtype=torch.long, device=self.device)
+
+    def prefill(self, params, batch: Dict, *, max_len: int):
+        batch = dict(batch, tokens=self._tokens(batch["tokens"]))
+        return transformer.prefill(params, batch, self.cfg, max_len=max_len)
+
+    def decode_step(self, params, cache, token, pos):
+        return transformer.decode_step(params, cache, self._tokens(token), pos, self.cfg)
+
+    def init_decode_cache(self, batch: int, max_len: int):
+        return transformer.init_decode_cache(self.cfg, batch, max_len, device=self.device)
+
+    def count_params(self, params) -> int:
+        return transformer.count_params(params)

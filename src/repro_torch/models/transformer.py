@@ -1,0 +1,223 @@
+"""Decoder-only LM, dense attention patterns — counterpart of ``src/repro/models/transformer.py``.
+
+The stack is ``cfg.n_units`` repeats of ``cfg.pattern``; parameters and caches
+of each pattern position are stacked across units with a leading ``n_units``
+dimension, as in the reference, and the reference's ``lax.scan`` over units is
+a Python loop here.  Ported: ``init_lm``, ``_embed_inputs``, ``_logits``,
+``init_decode_cache``, ``decode_step``, ``prefill`` and ``count_params`` for
+attention mixers with dense FFNs.  The mamba, rwkv and moe layers raise
+``NotImplementedError`` until their slices land (ROADMAP.md queue 1).
+
+Two reference quirks are kept on purpose: prefill scales the embedding when
+``norm == "rmsnorm" and post_block_norm`` but decode when ``post_block_norm``
+alone is set; and a local layer's cache is a ring only when its length equals
+the window.  One reference fault is not copied: when a prompt is longer than
+a ring cache, the reference keeps the last T keys at slots ``0..T-1`` while
+decode writes slot ``pos % T``; here position p always sits at slot ``p % T``
+(ROADMAP.md queue 3).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any, Dict
+
+import torch
+
+from .attention import attention_layer, decode_attention_layer, init_attention, init_kv_cache
+from .layers import Init, Params, embed, init_embedding, init_mlp, init_norm, mlp, norm, softcap, unembed
+
+__all__ = [
+    "init_lm",
+    "prefill",
+    "decode_step",
+    "init_decode_cache",
+    "count_params",
+]
+
+_UNPORTED = {
+    "mamba": "ROADMAP.md queue 1, item 'models/mamba.py'",
+    "rwkv": "ROADMAP.md queue 1, item 'models/rwkv6.py'",
+    "moe": "ROADMAP.md queue 1, item 'models/moe.py'",
+    "rwkv_cmix": "ROADMAP.md queue 1, item 'models/rwkv6.py'",
+}
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def _dtype(cfg) -> torch.dtype:
+    return _DTYPES[cfg.dtype]
+
+
+def _pdtype(cfg) -> torch.dtype:
+    return _DTYPES[cfg.param_dtype]
+
+
+def _check_ported(cfg) -> None:
+    for spec in cfg.pattern:
+        for kind in (spec.mixer, spec.ffn):
+            if kind in _UNPORTED:
+                raise NotImplementedError(f"{cfg.name}: '{kind}' layers are not ported yet ({_UNPORTED[kind]})")
+
+
+# ---------------------------------------------------------------------------
+# init
+# ---------------------------------------------------------------------------
+
+
+def _init_layer(init: Init, cfg) -> Params:
+    p: Params = {"norm1": init_norm(init, cfg.norm, cfg.d_model)}
+    p["mixer"] = init_attention(init, cfg)
+    p["norm2"] = init_norm(init, cfg.norm, cfg.d_model)
+    p["ffn"] = init_mlp(init, cfg.d_model, cfg.d_ff, activation=cfg.activation)
+    if cfg.post_block_norm:
+        p["norm1_post"] = init_norm(init, cfg.norm, cfg.d_model)
+        p["norm2_post"] = init_norm(init, cfg.norm, cfg.d_model)
+    return p
+
+
+def init_lm(cfg, generator, device) -> Params:
+    """Random parameters with the reference's shapes and distributions.
+
+    Dense weights are normal·1/√fan_in, embeddings normal·0.02, the attention
+    output projection normal/√(H·hd), norm scales ones.  ``device="meta"``
+    gives the shapes without drawing or allocating anything.
+    """
+    _check_ported(cfg)
+    if cfg.tie_embeddings is False:
+        raise NotImplementedError(f"{cfg.name}: untied output heads are not ported yet")
+    init = Init(generator, device, _pdtype(cfg))
+    params: Params = {"embed": init_embedding(init, cfg.vocab_size, cfg.d_model)}
+    params["final_norm"] = init_norm(init, cfg.norm, cfg.d_model)
+    unit_init = init.stacked(cfg.n_units)
+    params["units"] = {f"pos{i}": _init_layer(unit_init, cfg) for i in range(len(cfg.pattern))}
+    return params
+
+
+def count_params(params) -> int:
+    return sum(
+        count_params(leaf) if isinstance(leaf, dict) else leaf.numel() for leaf in params.values()
+    )
+
+
+# ---------------------------------------------------------------------------
+# embeddings and logits
+# ---------------------------------------------------------------------------
+
+
+def _embed_scale(x: torch.Tensor, cfg) -> torch.Tensor:
+    """Gemma-style embedding scale, multiplied in the compute dtype."""
+    return x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype, device=x.device)
+
+
+def _embed_inputs(params, batch: Dict[str, torch.Tensor], cfg) -> torch.Tensor:
+    x = embed(params["embed"], batch["tokens"], dtype=_dtype(cfg))
+    if cfg.norm == "rmsnorm" and cfg.post_block_norm:
+        x = _embed_scale(x, cfg)
+    return x
+
+
+def _logits(params, x: torch.Tensor, cfg) -> torch.Tensor:
+    logits = unembed(params["embed"], x, dtype=_dtype(cfg))
+    return softcap(logits, cfg.final_softcap)
+
+
+def _unit(tree: Dict[str, Any], u: int) -> Dict[str, Any]:
+    """Slice unit u out of a stacked tree (views, so cache writes land in place)."""
+    return {k: _unit(v, u) if isinstance(v, dict) else v[u] for k, v in tree.items()}
+
+
+def _block(lp, x, mix, cfg, dt):
+    """Residual add of the mixer output, then the FFN block (sandwich norms if set)."""
+    if cfg.post_block_norm:
+        mix = norm(lp["norm1_post"], mix, kind=cfg.norm)
+    x = x + mix
+    f = mlp(lp["ffn"], norm(lp["norm2"], x, kind=cfg.norm), activation=cfg.activation, dtype=dt)
+    if cfg.post_block_norm:
+        f = norm(lp["norm2_post"], f, kind=cfg.norm)
+    return x + f
+
+
+# ---------------------------------------------------------------------------
+# caches + decode
+# ---------------------------------------------------------------------------
+
+
+def init_decode_cache(cfg, batch: int, max_len: int, *, device) -> Dict:
+    """Stacked-per-position K/V caches; local layers never hold more than the window."""
+    _check_ported(cfg)
+    cache: Dict[str, Any] = {}
+    for i, spec in enumerate(cfg.pattern):
+        T = max_len
+        if spec.mixer == "attn_local" and cfg.attn_window:
+            T = min(max_len, cfg.attn_window)
+        cache[f"pos{i}"] = init_kv_cache(
+            cfg, batch, T, n_layers_of_kind=cfg.n_units, dtype=_dtype(cfg), device=device
+        )
+    return cache
+
+
+def _rolling(cfg, spec, T: int) -> bool:
+    # the cache was allocated at min(max_len, window): it rolls exactly when clamped
+    return spec.mixer == "attn_local" and bool(cfg.attn_window) and T == cfg.attn_window
+
+
+def decode_step(params, cache: Dict, token: torch.Tensor, pos, cfg):
+    """One decode step.  token: [B, 1]; pos: scalar or [B] per-slot positions.
+
+    Returns (cache, logits [B, 1, V]); the cache is updated in place.
+    """
+    dt = _dtype(cfg)
+    x = embed(params["embed"], token, dtype=dt)
+    if cfg.post_block_norm:
+        x = _embed_scale(x, cfg)
+    pos = torch.as_tensor(pos, dtype=torch.long, device=x.device)
+    for u in range(cfg.n_units):
+        unit_p = _unit(params["units"], u)
+        unit_c = _unit(cache, u)
+        for i, spec in enumerate(cfg.pattern):
+            lp, lc = unit_p[f"pos{i}"], unit_c[f"pos{i}"]
+            T = lc["k"].shape[1]
+            rolling = _rolling(cfg, spec, T)
+            mix, _, _ = decode_attention_layer(
+                lp["mixer"], norm(lp["norm1"], x, kind=cfg.norm), lc["k"], lc["v"],
+                pos % T if rolling else pos, cfg, kind=spec.mixer, dtype=dt,
+                rolling=rolling, abs_pos=pos,
+            )
+            x = _block(lp, x, mix, cfg, dt)
+    x = norm(params["final_norm"], x, kind=cfg.norm)
+    return cache, _logits(params, x, cfg)
+
+
+def prefill(params, batch: Dict[str, torch.Tensor], cfg, *, max_len: int):
+    """Forward over a prompt, building decode caches.  Returns (cache, last_logits [B,1,V]).
+
+    A ring cache shorter than the prompt keeps the last T keys, position p at
+    slot ``p % T`` — the slot decode reads and overwrites next.
+    """
+    dt = _dtype(cfg)
+    tokens = batch["tokens"]
+    B, S = tokens.shape
+    if S > max_len:
+        raise ValueError(f"prompt of {S} tokens does not fit max_len={max_len}")
+    x = _embed_inputs(params, batch, cfg)
+    positions = torch.arange(S, device=x.device).expand(B, S)
+    cache = init_decode_cache(cfg, B, max_len, device=x.device)
+    for u in range(cfg.n_units):
+        unit_p = _unit(params["units"], u)
+        unit_c = _unit(cache, u)
+        for i, spec in enumerate(cfg.pattern):
+            lp, lc = unit_p[f"pos{i}"], unit_c[f"pos{i}"]
+            mix, (k_new, v_new) = attention_layer(
+                lp["mixer"], norm(lp["norm1"], x, kind=cfg.norm), positions, cfg,
+                kind=spec.mixer, dtype=dt, return_kv=True,
+            )
+            T = lc["k"].shape[1]
+            for c, new in ((lc["k"], k_new), (lc["v"], v_new)):
+                if T >= S:
+                    c[:, :S] = new.to(c.dtype)
+                else:  # ring: position S-T+j goes to slot (S-T+j) % T
+                    c.copy_(torch.roll(new[:, S - T:], shifts=S % T, dims=1).to(c.dtype))
+            x = _block(lp, x, mix, cfg, dt)
+    x = norm(params["final_norm"], x, kind=cfg.norm)
+    return cache, _logits(params, x[:, -1:, :], cfg)

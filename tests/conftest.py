@@ -8,6 +8,12 @@ import pytest
 from repro.core import Collaboration
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA card; the test skips itself, inside its body, when there is none"
+    )
+
+
 @pytest.fixture()
 def collab():
     """Two in-memory data centers × two DTNs each (the paper's testbed shape)."""
