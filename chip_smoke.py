@@ -6,23 +6,34 @@
 Phases, each of which raises on failure (the script then exits non-zero):
 
 1. device   — the card's name and power limit (nvidia-smi), torch and CUDA versions;
-2. build    — nvcc builds every kernel source under src/repro_torch/kernels/csrc,
+2. build    — nvcc builds every kernel source under src/repro_torch/kernels/csrc and
+              the planted-fault copies below, one nvcc per source, all at once,
               printing the build time and ptxas' register / shared-memory report;
 3. kernels  — each kernel's wrapper against its plain PyTorch version on the card,
-              at the smoke shape, the gemma2-2b geometry and the serve path's own
+              at the smoke shape, the full model's geometry and the serve paths' own
               shapes, with the stated tolerance; one JSON line per case with
-              kernel, plain, library (one PyTorch call) and bound times;
-   planted  — a copy of the kernel built to skip the last live KV tile of every
-              block must fail the same gate at the long-prompt bf16 shape;
+              kernel, plain, library (one PyTorch call, where there is one) and
+              bound times;
+   planted  — copies of the kernels with a fault built in must fail the same gates:
+              flash attention that skips the last live KV tile of every block, and
+              WKV-6 that (a) drops the bonus u, (b) ignores s0 or (c) resets its
+              state halfway through the sequence;
 4. serve    — gemma2-2b at full width (26 layers, bf16 compute, f32 weights from a
               seeded torch.Generator) through ServeEngine: 8 prompts of 4-24 tokens,
-              4 slots, 16 new tokens, greedy; the kernel's launch count must rise by
-              exactly 26 per prefill;
+              4 slots, 16 new tokens, greedy; flash attention must launch exactly 26
+              times per prefill and WKV-6 never;
 5. long     — one 4608-token prompt (max_len 8192): the local layers' 4096 window
               binds inside the kernel and their ring cache is used;
 6. check    — the card's logits against the CPU's (plain attention) on the same
               weights: the full-width model in f32 and the smoke model, at the
-              reference's 2e-3.
+              reference's 2e-3;
+7. rwkv6    — rwkv6-7b at full width (32 layers, 7.27 B parameters, bf16 compute):
+              rwkv6-serve as in phase 4, with WKV-6 launched exactly 32 times per
+              prefill and per decode step and flash attention never; rwkv6-long, one
+              4096-token prompt (16 chunks of the plain version's 256); rwkv6-check,
+              card against CPU at 2e-3 on a 2-layer cut of the full width in f32 over
+              a 300-token prompt (the CPU's plain scan crosses a chunk boundary into a
+              padded tail) plus 2 decode steps, and on the smoke model over 20 steps.
 
 It ends with the kernels' JSON line, the nvidia-smi line, and the line
 ``{"ok": true, "device": {...}}``.  With no CUDA device, or without the
@@ -36,6 +47,7 @@ import math
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -43,6 +55,7 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 F32_TOL = dict(atol=2e-5, rtol=2e-5)     # the reference's kernel tolerance (tests/test_kernels.py)
 BF16_REL = 2e-2                          # the reference's bf16 tolerance, taken relative to the output
+SCAN_REL = 1e-4                          # the reference's scan tolerance, taken relative to the output
 LOGIT_TOL = dict(atol=2e-3, rtol=2e-3)   # the reference's prefill/decode tolerance
 HBM_BYTES_PER_S = 3.35e12                # H100 SXM data sheet
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}  # bf16 tensor cores; f32 outside them
@@ -184,22 +197,65 @@ def run_kernel_cases(torch, card):
     return rows
 
 
-def planted_fault_check(torch, card):
+# planted faults, by the copy's name: (kernel source, text of the source, its faulty replacement)
+PLANTED = {
+    "flash_skip_last_tile": ("flash_attention", "for (int kt = kt_begin; kt < kt_end; ++kt)",
+                             "for (int kt = kt_begin; kt < kt_end - 1; ++kt)"),
+    "wkv6_no_bonus": ("wkv6", "fmaf(uu[m], kv, st[m])", "st[m]"),
+    "wkv6_ignores_s0": ("wkv6", "const bool has_s0 = s0 != nullptr;", "const bool has_s0 = false;"),
+    "wkv6_reset_halfway": ("wkv6", "    for (int tt = 0; tt < n; ++tt) {\n",
+                           "    for (int tt = 0; tt < n; ++tt) {\n"
+                           "      if (t0 + tt == seq / 2) {\n"
+                           "#pragma unroll\n"
+                           "        for (int m = 0; m < R; ++m) st[m] = 0.f;\n"
+                           "      }\n"),
+}
+
+
+def planted_sources():
+    """Write each faulty copy under build/ (never into the source tree); returns {name: (src, lib)}."""
+    from repro_torch.kernels import _build
+
+    out = {}
+    for name, (kernel, good, bad) in PLANTED.items():
+        src = (_build.CSRC / f"{kernel}.cu").read_text()
+        if src.count(good) != 1:
+            raise AssertionError(f"planted {name}: {good!r} is not in {kernel}.cu exactly once")
+        path = _build.BUILD_DIR / "planted" / f"{name}.cu"
+        path.parent.mkdir(parents=True, exist_ok=True)
+        path.write_text(src.replace(good, bad))
+        out[name] = (path, path.with_suffix(".so"))
+    return out
+
+
+def build_everything(card):
+    """The kernels of the port and the planted copies: one nvcc per source, all started together."""
+    from repro_torch.kernels import _build
+
+    planted = planted_sources()
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=1 + len(planted)) as pool:
+        main = pool.submit(_build.build_all)
+        logs = {name: pool.submit(_build.compile_source, src, lib) for name, (src, lib) in planted.items()}
+        builds = main.result()
+        for fut in logs.values():
+            fut.result()
+    log("build", f"{sorted(builds)} and {len(planted)} planted copies built in "
+                 f"{time.perf_counter() - t0:.1f} s on {card} (nvcc {' '.join(_build.NVCC_FLAGS)})")
+    for res in builds.values():
+        for line in res.log.splitlines():
+            if any(key in line for key in ("Compiling entry", "registers", "spill")):
+                log("build", f"{res.name}: {line.strip()}")
+    return {name: lib for name, (_, lib) in planted.items()}
+
+
+def planted_fault_check(torch, card, planted):
     """A kernel that skips the last live KV tile of each block must fail the bf16 gate."""
     import ctypes
 
     import repro_torch.kernels.flash_attention as fa
-    from repro_torch.kernels import _build
 
-    loop = "for (int kt = kt_begin; kt < kt_end; ++kt)"
-    src = (_build.CSRC / "flash_attention.cu").read_text()
-    if src.count(loop) != 1:
-        raise AssertionError(f"planted: the KV loop {loop!r} is not in the kernel source once")
-    planted = _build.BUILD_DIR / "planted" / "flash_attention_skip_last_tile.cu"
-    planted.parent.mkdir(parents=True, exist_ok=True)
-    planted.write_text(src.replace(loop, "for (int kt = kt_begin; kt < kt_end - 1; ++kt)"))
-    _build.compile_source(planted, planted.with_suffix(".so"))
-    lib = fa._bind(ctypes.CDLL(str(planted.with_suffix(".so"))))
+    lib = fa._bind(ctypes.CDLL(str(planted["flash_skip_last_tile"])))
 
     B, S, H, Kv, hd = 1, 4608, 8, 4, 256
     kw = dict(causal=True, window=4096, logit_softcap=50.0, q_offset=0)
@@ -224,7 +280,136 @@ def planted_fault_check(torch, card):
 
 
 # ---------------------------------------------------------------------------
-# phases 4-6: the serving path
+# phase 3, WKV-6: kernel vs plain at the scan tolerance, and its planted faults
+# ---------------------------------------------------------------------------
+
+WKV_GEOMETRY = {"smoke": (4, 16, 16), "rwkv6": (64, 64, 256)}  # H, C, the plain version's chunk
+
+
+def wkv6_cases():
+    """(label, dtype, B, S, H, C, chunk, s0): the reference's smoke case, the full
+    width at S in {1, 23, 256, 4096}, and decode at 4 slots; bf16 and f32 each."""
+    cases = []
+    for dtype in ("bfloat16", "float32"):
+        for s0 in ("zero", "carried"):
+            cases.append(("smoke", dtype, 2, 64, *WKV_GEOMETRY["smoke"], s0))
+            for S in (1, 23, 256, 4096):
+                cases.append(("rwkv6", dtype, 1, S, *WKV_GEOMETRY["rwkv6"], s0))
+        cases.append(("rwkv6-decode", dtype, 4, 1, *WKV_GEOMETRY["rwkv6"], "carried"))
+    return cases
+
+
+def scan_tol(plain) -> dict:
+    """The reference's 1e-4 scan tolerance, with atol relative to the rms of the plain result.
+
+    Kernel and plain both compute in f32 from the same inputs and return f32 in
+    every dtype, so they differ only by f32 rounding in another order.
+    """
+    rms = plain.float().pow(2).mean().sqrt().item()
+    return dict(atol=SCAN_REL * rms, rtol=SCAN_REL)
+
+
+def wkv6_bound(dtype, B, S, H, C, with_s0):
+    """Least time: max(bytes / HBM rate, f32 operations / f32 peak).
+
+    Bytes: r, k, v in their dtype, w, out (and s0, s_fin, u) in f32, each once.
+    Operations: 5 C^2 per token and head, the recurrence's least count
+    (out = r·S + v (r·(u∘k)): 2 C^2; S <- w∘S + k⊗v: 3 C^2), all in f32.
+    """
+    n = B * S * H * C
+    elt = 2 if dtype == "bfloat16" else 4
+    nbytes = 3 * elt * n + 4 * (2 * n + H * C + (2 if with_s0 else 1) * B * H * C * C)
+    flops = 5.0 * B * S * H * C * C
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS["float32"]
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def wkv6_inputs(torch, gen, dtype, B, S, H, C):
+    """r, k, v ~ N(0, 1) in dtype; w = exp(-exp(w0 + 0.5 N)) from the model's own decay base; u = 0.1 N."""
+    from repro_torch.models.rwkv6 import decay_base
+
+    dt = getattr(torch, dtype)
+    r, k, v = (torch.randn((B, S, H, C), generator=gen, device="cuda").to(dt) for _ in range(3))
+    base = decay_base(H * C).to("cuda").reshape(H, C)
+    w = torch.exp(-torch.exp(base + 0.5 * torch.randn((B, S, H, C), generator=gen, device="cuda")))
+    u = 0.1 * torch.randn((H, C), generator=gen, device="cuda")
+    return r, k, v, w, u
+
+
+def carried_state(torch, gen, B, H, C):
+    """A non-zero s0: the state the plain version leaves after a 256-token segment."""
+    from repro_torch.kernels.wkv6 import wkv6_plain
+
+    r, k, v, w, u = wkv6_inputs(torch, gen, "float32", B, 256, H, C)
+    return wkv6_plain(r, k, v, w, u, chunk=256)[1]
+
+
+def wkv6_case_inputs(torch, dtype, B, S, H, C, s0_kind, seed):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    r, k, v, w, u = wkv6_inputs(torch, gen, dtype, B, S, H, C)
+    s0 = carried_state(torch, gen, B, H, C) if s0_kind == "carried" else None
+    return r, k, v, w, u, s0
+
+
+def run_wkv6_cases(torch, card):
+    from repro_torch.kernels.wkv6 import wkv6, wkv6_plain
+
+    rows = []
+    for seed, (label, dtype, B, S, H, C, chunk, s0_kind) in enumerate(wkv6_cases()):
+        r, k, v, w, u, s0 = wkv6_case_inputs(torch, dtype, B, S, H, C, s0_kind, seed)
+        out, state = wkv6(r, k, v, w, u, chunk=chunk, s0=s0)
+        torch.cuda.synchronize()
+        plain_out, plain_state = wkv6_plain(r, k, v, w, u, chunk=chunk, s0=s0)
+        name = f"{label} {dtype} B{B} S{S} H{H} C{C} s0 {s0_kind}"
+        if out.dtype != torch.float32 or state.dtype != torch.float32:
+            raise AssertionError(f"{name}: kernel returned {out.dtype} / {state.dtype}, not float32")
+        tol, state_tol = scan_tol(plain_out), scan_tol(plain_state)
+        err = check_close(name, out, plain_out, tol)
+        state_err = check_close(f"{name} final state", state, plain_state, state_tol)
+        kernel_ms = cuda_ms(torch, lambda: wkv6(r, k, v, w, u, chunk=chunk, s0=s0))
+        plain_ms = cuda_ms(torch, lambda: wkv6_plain(r, k, v, w, u, chunk=chunk, s0=s0), max_reps=5)
+        bound_ms, bound_by = wkv6_bound(dtype, B, S, H, C, s0 is not None)
+        row = dict(case=name, dtype=dtype, S=S, s0=s0_kind, max_abs_err=err, tol=tol,
+                   state_max_abs_err=state_err, state_tol=state_tol, kernel_ms=kernel_ms,
+                   plain_ms=plain_ms, library_ms=None, library="none", bound_ms=bound_ms,
+                   bound_by=bound_by, card=card)
+        print(json.dumps(row), flush=True)
+        rows.append(row)
+    return rows
+
+
+def wkv6_planted_checks(torch, card, planted):
+    """Each faulty WKV-6 build must put elements of out or s_fin outside the scan gate."""
+    import ctypes
+
+    import repro_torch.kernels.wkv6 as wk
+
+    H, C, chunk = WKV_GEOMETRY["rwkv6"]
+    checks = (("wkv6_no_bonus", "the bonus term u is dropped", 1, 4096, "zero"),
+              ("wkv6_ignores_s0", "s0 is ignored (starts from zero)", 4, 1, "carried"),
+              ("wkv6_reset_halfway", "the state is reset once, halfway", 1, 4096, "zero"))
+    for seed, (name, fault, B, S, s0_kind) in enumerate(checks, start=100):
+        r, k, v, w, u, s0 = wkv6_case_inputs(torch, "bfloat16", B, S, H, C, s0_kind, seed)
+        plain_out, plain_state = wk.wkv6_plain(r, k, v, w, u, chunk=chunk, s0=s0)
+        lib = wk._bind(ctypes.CDLL(str(planted[name])))
+        good_lib, wk._lib = wk._lib, lambda: lib
+        try:
+            out, state = wk.wkv6(r, k, v, w, u, chunk=chunk, s0=s0)
+            torch.cuda.synchronize()
+        finally:
+            wk._lib = good_lib
+        tol, state_tol = scan_tol(plain_out), scan_tol(plain_state)
+        bad, bad_state = n_outside(out, plain_out, tol), n_outside(state, plain_state, state_tol)
+        log("planted", json.dumps(dict(
+            fault=f"WKV-6: {fault}", case=f"bfloat16 B{B} S{S} H{H} C{C} s0 {s0_kind}",
+            max_abs_err=(out - plain_out).abs().max().item(), tol=tol, outside_tol=bad,
+            state_outside_tol=bad_state, elements=out.numel() + state.numel(), card=card)))
+        if not (bad or bad_state):
+            raise AssertionError(f"planted {name}: the scan gate passed a kernel where {fault}")
+
+
+# ---------------------------------------------------------------------------
+# phases 4-7: the serving paths
 # ---------------------------------------------------------------------------
 
 
@@ -232,27 +417,54 @@ def tree_map(fn, tree):
     return {k: tree_map(fn, v) if isinstance(v, dict) else fn(v) for k, v in tree.items()}
 
 
-def serve(torch, model, params, card, *, prompts, max_len, slots, max_new, phase):
+def kernel_counters():
     from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.wkv6 import wkv6
+
+    return {"flash_attention": flash_attention, "wkv6": wkv6}
+
+
+def serve(torch, model, params, card, *, prompts, max_len, slots, max_new, phase, per_pass):
+    """Drive ServeEngine; ``per_pass[kind][kernel]`` is the exact launch count each
+    prefill / decode step must add (read around every forward pass)."""
+    from repro_torch.models import Model
     from repro_torch.serve import ServeConfig, ServeEngine
 
-    eng = ServeEngine(model, params, ServeConfig(max_len=max_len, slots=slots, eos_token=-1, seed=0),
+    counters = kernel_counters()
+    passes = []
+
+    def counted(kind, fn):
+        def call(*args, **kw):
+            before = {k: c.launches for k, c in counters.items()}
+            out = fn(*args, **kw)
+            passes.append((kind, {k: c.launches - before[k] for k, c in counters.items()}))
+            return out
+        return call
+
+    run_model = Model(model.cfg, device=model.device)  # this run's own, so the wrappers end with it
+    run_model.prefill = counted("prefill", run_model.prefill)
+    run_model.decode_step = counted("decode", run_model.decode_step)
+    eng = ServeEngine(run_model, params, ServeConfig(max_len=max_len, slots=slots, eos_token=-1, seed=0),
                       device="cuda")
     reqs = [eng.submit(p, max_new) for p in prompts]
     torch.cuda.reset_peak_memory_stats()
-    flash_attention.launches = 0          # count only this run of the main path
+    for c in counters.values():
+        c.launches = 0                    # count only this run of the main path
     stats = eng.run_until_drained(reqs)
-    launches = flash_attention.launches
+    launches = {k: c.launches for k, c in counters.items()}
     vocab = model.cfg.vocab_size
     if not all(r.done for r in reqs):
         raise AssertionError(f"{phase}: requests left pending")
     if not all(len(r.out_tokens) == max_new and all(0 <= t < vocab for t in r.out_tokens) for r in reqs):
         raise AssertionError(f"{phase}: a request has the wrong token count or an out-of-range token")
-    if launches != model.cfg.n_layers * stats["prefills"] or stats["prefills"] != len(prompts):
-        raise AssertionError(f"{phase}: {launches} kernel launches for {stats['prefills']} prefills "
-                             f"of a {model.cfg.n_layers}-layer model")
-    stats.update(kernel_launches=launches, max_memory_allocated_bytes=torch.cuda.max_memory_allocated(),
-                 card=card)
+    if stats["prefills"] != len(prompts) or len(passes) != stats["prefills"] + stats["decode_steps"]:
+        raise AssertionError(f"{phase}: {len(passes)} forward passes for {stats['prefills']} prefills "
+                             f"and {stats['decode_steps']} decode steps of {len(prompts)} prompts")
+    wrong = [(i, kind, got) for i, (kind, got) in enumerate(passes) if got != per_pass[kind]]
+    if wrong:
+        raise AssertionError(f"{phase}: kernel launches per pass differ from {per_pass}: {wrong[:4]}")
+    stats.update(kernel_launches=launches, launches_per_pass=per_pass,
+                 max_memory_allocated_bytes=torch.cuda.max_memory_allocated(), card=card)
     log(phase, json.dumps(stats))
     return eng, stats
 
@@ -272,8 +484,44 @@ def compare_with_cpu(torch, cfg, params_gpu, tokens, decode_tokens, phase):
         cache_g, lg = gpu.decode_step(params_gpu, cache_g, [[tok]], S + t)
         cache_c, lc = cpu.decode_step(params_cpu, cache_c, [[tok]], S + t)
         errs.append(check_close(f"{phase} decode {t}", lg.cpu(), lc, LOGIT_TOL))
-    log(phase, f"{cfg.name} {cfg.dtype}: prompt {S}, {len(decode_tokens)} decode steps, "
+    log(phase, f"{cfg.name} ({cfg.n_layers} layers) {cfg.dtype}: prompt {S}, {len(decode_tokens)} decode steps, "
                f"max |logit err| card vs CPU {max(errs):.3e} (tol {LOGIT_TOL})")
+
+
+def rwkv6_phases(torch, card, rng):
+    """rwkv6-7b at full width: serve, one long prompt, and card against CPU."""
+    from repro_torch.configs import get_config, smoke_variant
+    from repro_torch.models import Model
+
+    cfg = get_config("rwkv6-7b")
+    per_pass = {kind: {"flash_attention": 0, "wkv6": cfg.n_layers} for kind in ("prefill", "decode")}
+    model = Model(cfg, device="cuda")
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    log("rwkv6", f"{cfg.name}: {model.count_params(params)} parameters, f32 master weights, "
+                 f"{cfg.dtype} compute")
+    prompts = [rng.integers(0, cfg.vocab_size, size=int(rng.integers(4, 25))) for _ in range(8)]
+    eng, stats = serve(torch, model, params, card, prompts=prompts, max_len=256, slots=4,
+                       max_new=16, phase="rwkv6-serve", per_pass=per_pass)
+    del params  # the engine keeps the bf16 copy
+    torch.cuda.empty_cache()
+    long_prompt = [rng.integers(0, cfg.vocab_size, size=4096)]
+    long_stats = serve(torch, model, eng.params, card, prompts=long_prompt, max_len=8192, slots=1,
+                       max_new=8, phase="rwkv6-long", per_pass=per_pass)[1]
+    del eng
+    torch.cuda.empty_cache()
+
+    # depth cut to 2 layers so that the CPU's plain path stays quick; widths are the full model's
+    cut = cfg.replace(n_layers=2, dtype="float32")
+    cut_params = Model(cut, device="cuda").init(torch.Generator(device="cuda").manual_seed(2))
+    compare_with_cpu(torch, cut, cut_params, rng.integers(0, cut.vocab_size, size=(1, 300)),
+                     [int(t) for t in rng.integers(0, cut.vocab_size, size=2)], "rwkv6-check")
+    del cut_params
+    torch.cuda.empty_cache()
+    small = smoke_variant(cfg)
+    small_params = Model(small, device="cuda").init(torch.Generator(device="cuda").manual_seed(1))
+    compare_with_cpu(torch, small, small_params, rng.integers(0, small.vocab_size, size=(1, 20)),
+                     [int(t) for t in rng.integers(0, small.vocab_size, size=20)], "rwkv6-check")
+    return stats, long_stats
 
 
 def main() -> int:
@@ -287,11 +535,11 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.configs import get_config, smoke_variant
-    from repro_torch.kernels import _build
     from repro_torch.models import Model
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
 
     # 1. device
     card = smi_line()
@@ -300,21 +548,19 @@ def main() -> int:
                   f"{torch.cuda.device_count()} device(s)")
 
     # 2. build
-    t0 = time.perf_counter()
-    builds = _build.build_all()
-    log("build", f"{sorted(builds)} built in {time.perf_counter() - t0:.1f} s on {card} "
-                 f"(nvcc {' '.join(_build.NVCC_FLAGS)})")
-    for res in builds.values():
-        for line in res.log.splitlines():
-            if any(key in line for key in ("Compiling entry", "registers", "spill")):
-                log("build", f"{res.name}: {line.strip()}")
+    planted = build_everything(card)
 
-    # 3. kernel vs plain, and the gate against a planted fault
+    # 3. kernel vs plain, and the gates against planted faults
     rows = run_kernel_cases(torch, card)
-    planted_fault_check(torch, card)
+    planted_fault_check(torch, card, planted)
+    wkv_rows = run_wkv6_cases(torch, card)
+    wkv6_planted_checks(torch, card, planted)
+    log("time", f"phases 1-3 done at {time.perf_counter() - t_start:.1f} s")
 
     # 4. serve at full width
     cfg = get_config("gemma2-2b")
+    per_pass = {"prefill": {"flash_attention": cfg.n_layers, "wkv6": 0},
+                "decode": {"flash_attention": 0, "wkv6": 0}}
     model = Model(cfg, device="cuda")
     params = model.init(torch.Generator(device="cuda").manual_seed(0))
     log("serve", f"{cfg.name}: {model.count_params(params)} parameters, f32 master weights, "
@@ -322,12 +568,12 @@ def main() -> int:
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, cfg.vocab_size, size=int(rng.integers(4, 25))) for _ in range(8)]
     eng, stats = serve(torch, model, params, card, prompts=prompts, max_len=256, slots=4,
-                       max_new=16, phase="serve")
+                       max_new=16, phase="serve", per_pass=per_pass)
 
     # 5. a prompt longer than the local window
     long_prompt = [rng.integers(0, cfg.vocab_size, size=4608)]
-    _, long_stats = serve(torch, model, eng.params, card, prompts=long_prompt, max_len=8192, slots=1,
-                          max_new=8, phase="long")
+    long_stats = serve(torch, model, eng.params, card, prompts=long_prompt, max_len=8192, slots=1,
+                       max_new=8, phase="long", per_pass=per_pass)[1]
     del eng
 
     # 6. the card against the CPU on the same weights
@@ -340,16 +586,32 @@ def main() -> int:
     small_params = Model(small, device="cuda").init(torch.Generator(device="cuda").manual_seed(1))
     compare_with_cpu(torch, small, small_params, rng.integers(0, small.vocab_size, size=(1, 20)),
                      [int(t) for t in rng.integers(0, small.vocab_size, size=20)], "check")
+    del small_params
+    torch.cuda.empty_cache()
+    log("time", f"phases 4-6 done at {time.perf_counter() - t_start:.1f} s; "
+                f"{torch.cuda.memory_allocated()} bytes still allocated")
+
+    # 7. rwkv6-7b at full width
+    rwkv_stats, rwkv_long_stats = rwkv6_phases(torch, card, rng)
+    log("time", f"phase 7 done at {time.perf_counter() - t_start:.1f} s")
 
     main_row = next(r for r in rows if r["case"].startswith("gemma2-serve-long bfloat16")
                     and r["window"] == 4096)
+    wkv_row = next(r for r in wkv_rows if r["case"] == "rwkv6 bfloat16 B1 S4096 H64 C64 s0 zero")
     kernels = [dict(
         name="flash_attention", route="cuda", source="src/repro_torch/kernels/csrc/flash_attention.cu",
-        replaces="src/repro/kernels/flash_attention.py:126", launches=stats["kernel_launches"],
+        replaces="src/repro/kernels/flash_attention.py:126", launches=stats["kernel_launches"]["flash_attention"],
         max_abs_err=main_row["max_abs_err"], ms=main_row["kernel_ms"], plain_ms=main_row["plain_ms"],
         bound_ms=main_row["bound_ms"], bound_by=main_row["bound_by"], library_ms=main_row["library_ms"],
         tol=main_row["tol"], shape=main_row["case"], library="sdpa, same mask, softcap 0",
-        launches_long_prompt=long_stats["kernel_launches"], card=card,
+        launches_long_prompt=long_stats["kernel_launches"]["flash_attention"], card=card,
+    ), dict(
+        name="wkv6", route="cuda", source="src/repro_torch/kernels/csrc/wkv6.cu",
+        replaces="src/repro/kernels/rwkv6_scan.py:96", launches=rwkv_stats["kernel_launches"]["wkv6"],
+        max_abs_err=wkv_row["max_abs_err"], ms=wkv_row["kernel_ms"], plain_ms=wkv_row["plain_ms"],
+        bound_ms=wkv_row["bound_ms"], bound_by=wkv_row["bound_by"], library_ms=None,
+        tol=wkv_row["tol"], shape=wkv_row["case"], library="none",
+        launches_long_prompt=rwkv_long_stats["kernel_launches"]["wkv6"], card=card,
     )]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi_line(), flush=True)

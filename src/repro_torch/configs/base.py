@@ -5,16 +5,22 @@ Counterpart of ``src/repro/configs/base.py`` (:class:`LayerSpec`,
 of a ``pattern`` of :class:`LayerSpec`; parameters and caches are stacked per
 pattern position with a leading ``n_units`` dimension, as in the reference.
 Fields that only the reference's other families, training or sharding read
-are left out; they arrive with the slices that port those paths.
+are left out; they arrive with the slices that port those paths.  The rwkv
+fields (:class:`RWKVSpec`, ``ssm_chunk``, ``sub_quadratic``) serve rwkv6-7b.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
-__all__ = ["LayerSpec", "ModelConfig", "smoke_variant"]
+__all__ = ["RWKVSpec", "LayerSpec", "ModelConfig", "smoke_variant"]
+
+
+@dataclass(frozen=True)
+class RWKVSpec:
+    head_dim: int = 64
 
 
 @dataclass(frozen=True)
@@ -55,10 +61,14 @@ class ModelConfig:
     final_softcap: float = 0.0     # Gemma2 final-logit softcap
     post_block_norm: bool = False  # Gemma2 sandwich norms
     tie_embeddings: bool = True
+    rwkv: Optional[RWKVSpec] = None
     dtype: str = "bfloat16"        # compute dtype
     param_dtype: str = "float32"   # master-weight dtype
     attn_chunk_q: int = 512        # query / key chunks of the plain attention
     attn_chunk_kv: int = 1024
+    ssm_chunk: int = 256           # chunk of the plain WKV recurrence
+    # capability flags
+    sub_quadratic: bool = False    # eligible for long_500k
 
     def __post_init__(self):
         if self.n_layers % len(self.pattern):
@@ -69,6 +79,8 @@ class ModelConfig:
         if any(s.mixer in ("attn", "attn_local") for s in self.pattern):
             if not (self.n_heads > 0 and self.n_kv_heads > 0):
                 raise ValueError(f"{self.name}: attention needs n_heads and n_kv_heads")
+        if any(s.mixer == "rwkv" for s in self.pattern) and self.rwkv is None:
+            raise ValueError(f"{self.name}: rwkv mixers need an RWKVSpec")
 
     @property
     def n_units(self) -> int:
@@ -96,11 +108,14 @@ def smoke_variant(cfg: ModelConfig) -> ModelConfig:
         param_dtype="float32",
         attn_chunk_q=32,
         attn_chunk_kv=32,
+        ssm_chunk=16,
     )
     if cfg.n_heads:
         kw["n_heads"] = 4
         kw["n_kv_heads"] = max(1, 4 * cfg.n_kv_heads // max(cfg.n_heads, 1))
         kw["head_dim"] = 16
+    if cfg.rwkv is not None:
+        kw["rwkv"] = RWKVSpec(head_dim=16)
     if cfg.attn_window:
         kw["attn_window"] = 16
     return cfg.replace(name=cfg.name + "-smoke", **kw)

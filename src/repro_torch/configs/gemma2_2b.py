@@ -30,4 +30,5 @@ CONFIG = ModelConfig(
     final_softcap=30.0,
     post_block_norm=True,
     tie_embeddings=True,
+    sub_quadratic=True,   # windowed layers bound the quadratic term
 )

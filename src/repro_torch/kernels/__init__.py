@@ -3,7 +3,10 @@
 - :mod:`.flash_attention` — fused online-softmax attention (CUDA C++,
   ``csrc/flash_attention.cu``), replacing the Pallas TPU kernel
   ``repro.kernels.flash_attention.flash_attention_pallas``.
-- :mod:`.ref` — dense oracles (counterpart of ``repro.kernels.ref``).
+- :mod:`.wkv6` — the RWKV-6 WKV recurrence with a state in and out (CUDA C++,
+  ``csrc/wkv6.cu``), replacing ``repro.kernels.rwkv6_scan.wkv6_pallas`` and
+  computing the function of its jnp twin ``repro.models.rwkv6.wkv_chunked``.
+- :mod:`.ref` — naive oracles (counterpart of ``repro.kernels.ref``).
 - :mod:`._build` — builds ``csrc/*.cu`` with ``nvcc`` at first use.
 
 Dispatch is by the tensor's device: a CUDA tensor launches the kernel (or

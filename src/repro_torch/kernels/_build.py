@@ -4,7 +4,9 @@ Each ``csrc/<name>.cu`` has a plain C interface and is compiled on its own
 into ``build/repro_torch/<name>-<digest>.so`` at the root of the checkout
 (listed in ``.gitignore``); the digest covers the source and the flags, so an
 edited source is rebuilt and an unchanged one is reused.  Nothing is built at
-import: the first kernel call (or :func:`build`) compiles.
+import: the first kernel call (or :func:`build`) compiles.  :func:`build`
+starts one ``nvcc`` per source, all together, so building every source takes
+about as long as the slowest one.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ import os
 import shutil
 import subprocess
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Dict, Iterable
 
@@ -67,21 +70,22 @@ def compile_source(src: Path, target: Path) -> str:
     return proc.stdout
 
 
+def _build_one(name: str) -> BuildResult:
+    target = _target(name)
+    log_path = target.with_suffix(".log")
+    if target.exists():
+        return BuildResult(name, target, 0.0, log_path.read_text() if log_path.exists() else "")
+    t0 = time.perf_counter()
+    log = compile_source(CSRC / f"{name}.cu", target)
+    log_path.write_text(log)
+    return BuildResult(name, target, time.perf_counter() - t0, log)
+
+
 def build(names: Iterable[str]) -> Dict[str, BuildResult]:
-    """Compile every named source that has no current build."""
-    results: Dict[str, BuildResult] = {}
-    for name in names:
-        target = _target(name)
-        log_path = target.with_suffix(".log")
-        if target.exists():
-            log = log_path.read_text() if log_path.exists() else ""
-            results[name] = BuildResult(name, target, 0.0, log)
-            continue
-        t0 = time.perf_counter()
-        log = compile_source(CSRC / f"{name}.cu", target)
-        log_path.write_text(log)
-        results[name] = BuildResult(name, target, time.perf_counter() - t0, log)
-    return results
+    """Compile every named source that has no current build, one nvcc per source, all at once."""
+    names = list(names)
+    with ThreadPoolExecutor(max_workers=max(1, len(names))) as pool:
+        return dict(zip(names, pool.map(_build_one, names)))
 
 
 def build_all() -> Dict[str, BuildResult]:

@@ -1,18 +1,18 @@
-"""Dense oracle for the attention kernel — counterpart of ``src/repro/kernels/ref.py``.
+"""Naive oracles for the kernels — counterpart of ``src/repro/kernels/ref.py``.
 
-Deliberately naive: it builds the full [S, T] score matrix in f32 so that it
-is obviously right.  Tests hold the plain blocked version and the CUDA kernel
-against it.
+Deliberately simple so that they are obviously right: attention builds the
+full [S, T] score matrix in f32, and the WKV recurrence steps one token at a
+time.  Tests hold the plain versions and the CUDA kernels against them.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
-__all__ = ["attention_ref"]
+__all__ = ["attention_ref", "wkv6_ref"]
 
 _BIG_NEG = -1e30
 
@@ -48,3 +48,31 @@ def attention_ref(
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bkgst,btkd->bskgd", p, v.float())
     return out.reshape(B, S, H, hd).to(q.dtype)
+
+
+def wkv6_ref(
+    r: torch.Tensor,  # [B, S, H, C]
+    k: torch.Tensor,
+    v: torch.Tensor,
+    w: torch.Tensor,  # [B, S, H, C] decay in (0, 1)
+    u: torch.Tensor,  # [H, C] current-token bonus
+    *,
+    s0: Optional[torch.Tensor] = None,  # [B, H, C, C]
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Sequential RWKV-6 recurrence, one token at a time.
+
+        out_t = r_t · (S_{t-1} + (u ∘ k_t) ⊗ v_t)
+        S_t   = diag(w_t) S_{t-1} + k_t ⊗ v_t
+
+    Returns (out [B,S,H,C] in r's dtype, final state [B,H,C,C] in f32).
+    """
+    B, S, H, C = r.shape
+    rf, kf, vf, wf, uf = (x.float() for x in (r, k, v, w, u))
+    state = torch.zeros((B, H, C, C), dtype=torch.float32, device=r.device) if s0 is None else s0.float()
+    outs = []
+    for t in range(S):
+        kv = kf[:, t, :, :, None] * vf[:, t, :, None, :]          # [B,H,C,C]
+        s_eff = state + uf[None, :, :, None] * kv
+        outs.append(torch.einsum("bhi,bhij->bhj", rf[:, t], s_eff))
+        state = wf[:, t, :, :, None] * state + kv
+    return torch.stack(outs, dim=1).to(r.dtype), state

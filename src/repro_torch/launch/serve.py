@@ -13,6 +13,7 @@ both inflated by the profiler's own host overhead.
 Example:
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-2b --smoke --device cpu \
         --requests 8 --max-new 16
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-7b     # full width, on the card
 """
 
 from __future__ import annotations

@@ -1,4 +1,4 @@
-"""Model stack — counterpart of ``src/repro/models`` (dense attention patterns)."""
+"""Model stack — counterpart of ``src/repro/models`` (attention patterns and RWKV-6)."""
 
 from .model import Model
 

@@ -66,6 +66,13 @@ class Init:
     def fill(self, shape: Tuple[int, ...], value: float) -> torch.Tensor:
         return torch.full(self.lead + tuple(shape), value, dtype=self.param_dtype, device=self.device)
 
+    def constant(self, value: torch.Tensor) -> torch.Tensor:
+        """``value``, the same in every stacked unit, in the parameter dtype."""
+        shape = self.lead + tuple(value.shape)
+        if self.device.type == "meta":
+            return torch.empty(shape, dtype=self.param_dtype, device="meta")
+        return value.to(device=self.device, dtype=self.param_dtype).expand(shape).clone()
+
 
 # ---------------------------------------------------------------------------
 # dense

@@ -1,12 +1,15 @@
-"""Decoder-only LM, dense attention patterns — counterpart of ``src/repro/models/transformer.py``.
+"""Decoder-only LM — counterpart of ``src/repro/models/transformer.py``.
 
 The stack is ``cfg.n_units`` repeats of ``cfg.pattern``; parameters and caches
 of each pattern position are stacked across units with a leading ``n_units``
 dimension, as in the reference, and the reference's ``lax.scan`` over units is
 a Python loop here.  Ported: ``init_lm``, ``_embed_inputs``, ``_logits``,
 ``init_decode_cache``, ``decode_step``, ``prefill`` and ``count_params`` for
-attention mixers with dense FFNs.  The mamba, rwkv and moe layers raise
-``NotImplementedError`` until their slices land (ROADMAP.md queue 1).
+attention mixers with dense FFNs (gemma2) and RWKV-6 time-mix with channel-mix
+(rwkv6).  The mamba and moe layers raise ``NotImplementedError`` until their
+slices land (ROADMAP.md queue 1).  Caches are updated in place: attention
+writes its new key/value rows, rwkv layers copy their new WKV state and
+token-shift carries over the old ones.
 
 Two reference quirks are kept on purpose: prefill scales the embedding when
 ``norm == "rmsnorm" and post_block_norm`` but decode when ``post_block_norm``
@@ -26,6 +29,7 @@ import torch
 
 from .attention import attention_layer, decode_attention_layer, init_attention, init_kv_cache
 from .layers import Init, Params, embed, init_embedding, init_mlp, init_norm, mlp, norm, softcap, unembed
+from .rwkv6 import init_rwkv_cache, init_rwkv_cmix, init_rwkv_tmix, rwkv_cmix, rwkv_tmix
 
 __all__ = [
     "init_lm",
@@ -37,9 +41,7 @@ __all__ = [
 
 _UNPORTED = {
     "mamba": "ROADMAP.md queue 1, item 'models/mamba.py'",
-    "rwkv": "ROADMAP.md queue 1, item 'models/rwkv6.py'",
     "moe": "ROADMAP.md queue 1, item 'models/moe.py'",
-    "rwkv_cmix": "ROADMAP.md queue 1, item 'models/rwkv6.py'",
 }
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -65,11 +67,17 @@ def _check_ported(cfg) -> None:
 # ---------------------------------------------------------------------------
 
 
-def _init_layer(init: Init, cfg) -> Params:
+def _init_layer(init: Init, cfg, spec) -> Params:
     p: Params = {"norm1": init_norm(init, cfg.norm, cfg.d_model)}
-    p["mixer"] = init_attention(init, cfg)
+    if spec.mixer == "rwkv":
+        p["mixer"] = init_rwkv_tmix(init, cfg)
+    else:
+        p["mixer"] = init_attention(init, cfg)
     p["norm2"] = init_norm(init, cfg.norm, cfg.d_model)
-    p["ffn"] = init_mlp(init, cfg.d_model, cfg.d_ff, activation=cfg.activation)
+    if spec.ffn == "rwkv_cmix":
+        p["ffn"] = init_rwkv_cmix(init, cfg)
+    else:
+        p["ffn"] = init_mlp(init, cfg.d_model, cfg.d_ff, activation=cfg.activation)
     if cfg.post_block_norm:
         p["norm1_post"] = init_norm(init, cfg.norm, cfg.d_model)
         p["norm2_post"] = init_norm(init, cfg.norm, cfg.d_model)
@@ -80,7 +88,8 @@ def init_lm(cfg, generator, device) -> Params:
     """Random parameters with the reference's shapes and distributions.
 
     Dense weights are normal·1/√fan_in, embeddings normal·0.02, the attention
-    output projection normal/√(H·hd), norm scales ones.  ``device="meta"``
+    output projection normal/√(H·hd), norm scales ones; the rwkv leaves follow
+    ``init_rwkv_tmix`` / ``init_rwkv_cmix``.  ``device="meta"``
     gives the shapes without drawing or allocating anything.
     """
     _check_ported(cfg)
@@ -90,7 +99,7 @@ def init_lm(cfg, generator, device) -> Params:
     params: Params = {"embed": init_embedding(init, cfg.vocab_size, cfg.d_model)}
     params["final_norm"] = init_norm(init, cfg.norm, cfg.d_model)
     unit_init = init.stacked(cfg.n_units)
-    params["units"] = {f"pos{i}": _init_layer(unit_init, cfg) for i in range(len(cfg.pattern))}
+    params["units"] = {f"pos{i}": _init_layer(unit_init, cfg, spec) for i, spec in enumerate(cfg.pattern)}
     return params
 
 
@@ -127,12 +136,25 @@ def _unit(tree: Dict[str, Any], u: int) -> Dict[str, Any]:
     return {k: _unit(v, u) if isinstance(v, dict) else v[u] for k, v in tree.items()}
 
 
-def _block(lp, x, mix, cfg, dt):
+def _rwkv_mix(lp, h, lc, cfg, dt):
+    """RWKV time-mix from the cached state; the new state replaces the old one in place."""
+    mix, st = rwkv_tmix(lp["mixer"], h, cfg, dtype=dt, state={"wkv": lc["wkv"], "shift": lc["tshift"]})
+    lc["wkv"].copy_(st["wkv"])
+    lc["tshift"].copy_(st["shift"])
+    return mix
+
+
+def _block(lp, spec, lc, x, mix, cfg, dt):
     """Residual add of the mixer output, then the FFN block (sandwich norms if set)."""
     if cfg.post_block_norm:
         mix = norm(lp["norm1_post"], mix, kind=cfg.norm)
     x = x + mix
-    f = mlp(lp["ffn"], norm(lp["norm2"], x, kind=cfg.norm), activation=cfg.activation, dtype=dt)
+    h = norm(lp["norm2"], x, kind=cfg.norm)
+    if spec.ffn == "rwkv_cmix":
+        f, st = rwkv_cmix(lp["ffn"], h, cfg, dtype=dt, state={"shift": lc["cshift"]})
+        lc["cshift"].copy_(st["shift"])
+    else:
+        f = mlp(lp["ffn"], h, activation=cfg.activation, dtype=dt)
     if cfg.post_block_norm:
         f = norm(lp["norm2_post"], f, kind=cfg.norm)
     return x + f
@@ -144,16 +166,22 @@ def _block(lp, x, mix, cfg, dt):
 
 
 def init_decode_cache(cfg, batch: int, max_len: int, *, device) -> Dict:
-    """Stacked-per-position K/V caches; local layers never hold more than the window."""
+    """Stacked-per-position caches: K/V for attention (local layers never hold
+    more than the window), the f32 WKV state and token-shift carries for rwkv."""
     _check_ported(cfg)
+    dt = _dtype(cfg)
     cache: Dict[str, Any] = {}
     for i, spec in enumerate(cfg.pattern):
-        T = max_len
-        if spec.mixer == "attn_local" and cfg.attn_window:
-            T = min(max_len, cfg.attn_window)
-        cache[f"pos{i}"] = init_kv_cache(
-            cfg, batch, T, n_layers_of_kind=cfg.n_units, dtype=_dtype(cfg), device=device
-        )
+        if spec.mixer == "rwkv":
+            entry = init_rwkv_cache(cfg, batch, n_layers_of_kind=cfg.n_units, dtype=dt, device=device)
+        else:
+            T = max_len
+            if spec.mixer == "attn_local" and cfg.attn_window:
+                T = min(max_len, cfg.attn_window)
+            entry = init_kv_cache(cfg, batch, T, n_layers_of_kind=cfg.n_units, dtype=dt, device=device)
+        if spec.ffn == "rwkv_cmix":
+            entry["cshift"] = torch.zeros((cfg.n_units, batch, 1, cfg.d_model), dtype=dt, device=device)
+        cache[f"pos{i}"] = entry
     return cache
 
 
@@ -177,14 +205,17 @@ def decode_step(params, cache: Dict, token: torch.Tensor, pos, cfg):
         unit_c = _unit(cache, u)
         for i, spec in enumerate(cfg.pattern):
             lp, lc = unit_p[f"pos{i}"], unit_c[f"pos{i}"]
-            T = lc["k"].shape[1]
-            rolling = _rolling(cfg, spec, T)
-            mix, _, _ = decode_attention_layer(
-                lp["mixer"], norm(lp["norm1"], x, kind=cfg.norm), lc["k"], lc["v"],
-                pos % T if rolling else pos, cfg, kind=spec.mixer, dtype=dt,
-                rolling=rolling, abs_pos=pos,
-            )
-            x = _block(lp, x, mix, cfg, dt)
+            h = norm(lp["norm1"], x, kind=cfg.norm)
+            if spec.mixer == "rwkv":
+                mix = _rwkv_mix(lp, h, lc, cfg, dt)
+            else:
+                T = lc["k"].shape[1]
+                rolling = _rolling(cfg, spec, T)
+                mix, _, _ = decode_attention_layer(
+                    lp["mixer"], h, lc["k"], lc["v"], pos % T if rolling else pos, cfg,
+                    kind=spec.mixer, dtype=dt, rolling=rolling, abs_pos=pos,
+                )
+            x = _block(lp, spec, lc, x, mix, cfg, dt)
     x = norm(params["final_norm"], x, kind=cfg.norm)
     return cache, _logits(params, x, cfg)
 
@@ -208,16 +239,19 @@ def prefill(params, batch: Dict[str, torch.Tensor], cfg, *, max_len: int):
         unit_c = _unit(cache, u)
         for i, spec in enumerate(cfg.pattern):
             lp, lc = unit_p[f"pos{i}"], unit_c[f"pos{i}"]
-            mix, (k_new, v_new) = attention_layer(
-                lp["mixer"], norm(lp["norm1"], x, kind=cfg.norm), positions, cfg,
-                kind=spec.mixer, dtype=dt, return_kv=True,
-            )
-            T = lc["k"].shape[1]
-            for c, new in ((lc["k"], k_new), (lc["v"], v_new)):
-                if T >= S:
-                    c[:, :S] = new.to(c.dtype)
-                else:  # ring: position S-T+j goes to slot (S-T+j) % T
-                    c.copy_(torch.roll(new[:, S - T:], shifts=S % T, dims=1).to(c.dtype))
-            x = _block(lp, x, mix, cfg, dt)
+            h = norm(lp["norm1"], x, kind=cfg.norm)
+            if spec.mixer == "rwkv":  # from the zero state of the fresh cache
+                mix = _rwkv_mix(lp, h, lc, cfg, dt)
+            else:
+                mix, (k_new, v_new) = attention_layer(
+                    lp["mixer"], h, positions, cfg, kind=spec.mixer, dtype=dt, return_kv=True,
+                )
+                T = lc["k"].shape[1]
+                for c, new in ((lc["k"], k_new), (lc["v"], v_new)):
+                    if T >= S:
+                        c[:, :S] = new.to(c.dtype)
+                    else:  # ring: position S-T+j goes to slot (S-T+j) % T
+                        c.copy_(torch.roll(new[:, S - T:], shifts=S % T, dims=1).to(c.dtype))
+            x = _block(lp, spec, lc, x, mix, cfg, dt)
     x = norm(params["final_norm"], x, kind=cfg.norm)
     return cache, _logits(params, x[:, -1:, :], cfg)

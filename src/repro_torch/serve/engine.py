@@ -92,6 +92,7 @@ class ServeEngine:
             cache1, last_logits = self.model.prefill(
                 self.params, {"tokens": req.prompt[None]}, max_len=self.cfg.max_len
             )
+            # in-place row copy: each leaf keeps its own dtype (rwkv's WKV state stays f32)
             for full, one in zip(_leaves(self.cache), _leaves(cache1)):
                 full[:, slot] = one[:, 0]
             first = int(self._sample(last_logits)[0, 0])  # waits for the device
