@@ -15,9 +15,10 @@ Phases, each of which raises on failure (the script then exits non-zero):
               kernel, plain, library (one PyTorch call, where there is one) and
               bound times;
    planted  — copies of the kernels with a fault built in must fail the same gates:
-              flash attention that skips the last live KV tile of every block, and
+              flash attention that skips the last live KV tile of every block,
               WKV-6 that (a) drops the bonus u, (b) ignores s0 or (c) resets its
-              state halfway through the sequence;
+              state halfway through the sequence, and the selective scan that
+              (a) drops the drive, (b) ignores h0 or (c) resets its state halfway;
 4. serve    — gemma2-2b at full width (26 layers, bf16 compute, f32 weights from a
               seeded torch.Generator) through ServeEngine: 8 prompts of 4-24 tokens,
               4 slots, 16 new tokens, greedy; flash attention must launch exactly 26
@@ -33,7 +34,16 @@ Phases, each of which raises on failure (the script then exits non-zero):
               4096-token prompt (16 chunks of the plain version's 256); rwkv6-check,
               card against CPU at 2e-3 on a 2-layer cut of the full width in f32 over
               a 300-token prompt (the CPU's plain scan crosses a chunk boundary into a
-              padded tail) plus 2 decode steps, and on the smoke model over 20 steps.
+              padded tail) plus 2 decode steps, and on the smoke model over 20 steps;
+8. jamba    — jamba-v0.1-52b cut to 2 of its 4 units (16 layers, 25.8 B parameters),
+              every width full, the reference's param_dtype="bfloat16" weights drawn
+              leaf by leaf: jamba-serve as in phase 4, with the selective scan launched
+              exactly 14 times and flash attention 2 times per prefill and neither per
+              decode step (decode is the reference's elementwise step); jamba-long, one
+              4096-token prompt (MoE capacity 640); jamba-check, card against CPU at
+              2e-3 on a full-width 2-layer cut that keeps pattern positions 3 and 4
+              (mamba + moe, attention + dense) in f32 over a 300-token prompt plus 2
+              decode steps, and on the smoke model over 20 steps.
 
 It ends with the kernels' JSON line, the nvidia-smi line, and the line
 ``{"ok": true, "device": {...}}``.  With no CUDA device, or without the
@@ -137,6 +147,10 @@ def attention_cases():
         cases.append(("gemma2-q_offset", dtype, 1, 512, 1536, 8, 4, 256, 4096, 50.0, 1024))
     for window in (4096, 0):  # the long-prompt serve phase's own shapes
         cases.append(("gemma2-serve-long", "bfloat16", 1, 4608, 4608, 8, 4, 256, window, 50.0, 0))
+    cases.append(("jamba-serve-long", "bfloat16", 1, 4096, 4096, 32, 8, 128, 0, 0.0, 0))  # jamba's attention layer
+    for dtype in ("bfloat16", "float32"):  # jamba-serve's prompts (one partial tile) and jamba-check's 300 tokens
+        for S in (4, 23, 300):
+            cases.append(("jamba", dtype, 1, S, S, 32, 8, 128, 0, 0.0, 0))
     return cases
 
 
@@ -209,6 +223,15 @@ PLANTED = {
                            "#pragma unroll\n"
                            "        for (int m = 0; m < R; ++m) st[m] = 0.f;\n"
                            "      }\n"),
+    "mamba_no_drive": ("mamba_scan", "h[s] = fmaf(decay, h[s], du * bs[tt][lane * NS + s]);",
+                       "h[s] = decay * h[s];"),
+    "mamba_ignores_h0": ("mamba_scan", "const bool has_h0 = h0 != nullptr;", "const bool has_h0 = false;"),
+    "mamba_reset_halfway": ("mamba_scan", "    for (int tt = 0; tt < n; ++tt) {\n",
+                            "    for (int tt = 0; tt < n; ++tt) {\n"
+                            "      if (t0 + tt == seq / 2) {\n"
+                            "#pragma unroll\n"
+                            "        for (int s = 0; s < NS; ++s) h[s] = 0.f;\n"
+                            "      }\n"),
 }
 
 
@@ -409,7 +432,130 @@ def wkv6_planted_checks(torch, card, planted):
 
 
 # ---------------------------------------------------------------------------
-# phases 4-7: the serving paths
+# phase 3, selective scan: kernel vs plain at the scan tolerance, and its planted faults
+# ---------------------------------------------------------------------------
+
+SCAN_GEOMETRY = {"smoke": (128, 8, 16), "jamba": (8192, 16, 256)}  # di, ds, the plain version's chunk
+EXP_PER_S = PEAK_FLOPS["float32"] / 16  # the SFUs' 16 exponentials per SM and clock, against 256 f32 FLOP
+
+
+def mamba_cases():
+    """(label, B, S, di, ds, chunk, h0): the smoke width, the full width at S in
+    {1, 23, 300, 4096} (300 ends the plain version's 256-chunks in a ragged
+    tail) with zero and carried h0, and 4 slots of one token; all f32, as the
+    model passes them."""
+    cases = [("smoke", 2, 64, *SCAN_GEOMETRY["smoke"], "zero")]
+    for h0 in ("zero", "carried"):
+        for S in (1, 23, 300, 4096):
+            cases.append(("jamba", 1, S, *SCAN_GEOMETRY["jamba"], h0))
+    cases.append(("jamba-B4", 4, 1, *SCAN_GEOMETRY["jamba"], "carried"))
+    return cases
+
+
+def mamba_bound(B, S, di, ds, with_h0):
+    """Least time: max(bytes / HBM rate, f32 FLOP / f32 peak, exponentials / SFU rate).
+
+    Bytes, all f32, each once: u, delta, y [B,S,di]; B, C [B,S,ds]; A; h0 (if
+    carried) and h_fin [B,di,ds].  Per token, channel and state one exp(delta A)
+    and 6 FLOP (delta A; decay h + drive, an FMA; (delta u) B; y += h C, an
+    FMA); per token and channel one more (delta u).
+    """
+    nbytes = 4 * (3 * B * S * di + 2 * B * S * ds + di * ds + (2 if with_h0 else 1) * B * di * ds)
+    flops = B * S * di * (6.0 * ds + 1)
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = max(flops / PEAK_FLOPS["float32"], B * S * di * ds / EXP_PER_S)
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def mamba_inputs(torch, gen, label, B, S, di, ds):
+    """u ~ N(0, 1), B, C ~ N(0, 1).  At the smoke width delta and A as the
+    reference's kernel tests draw them (softplus(N), -exp(0.5 N)); at jamba's
+    width as the model's init gives them: A = -(1..ds), delta = softplus(0.5 N +
+    dt_bias) with dt_bias the inverse softplus of a log-uniform step in [1e-3, 0.1]."""
+    import torch.nn.functional as F
+
+    u = torch.randn((B, S, di), generator=gen, device="cuda")
+    Bm, Cm = (torch.randn((B, S, ds), generator=gen, device="cuda") for _ in range(2))
+    if label == "smoke":
+        delta = F.softplus(torch.randn((B, S, di), generator=gen, device="cuda"))
+        A = -torch.exp(0.5 * torch.randn((di, ds), generator=gen, device="cuda"))
+    else:
+        lo, hi = math.log(1e-3), math.log(1e-1)
+        dt = torch.exp(lo + (hi - lo) * torch.rand((di,), generator=gen, device="cuda"))
+        delta = F.softplus(0.5 * torch.randn((B, S, di), generator=gen, device="cuda") + torch.log(torch.expm1(dt)))
+        A = -torch.arange(1, ds + 1, dtype=torch.float32, device="cuda").expand(di, ds).contiguous()
+    return u, delta, A, Bm, Cm
+
+
+def mamba_case_inputs(torch, label, B, S, di, ds, h0_kind, seed):
+    from repro_torch.kernels.mamba_scan import mamba_scan_plain
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    u, delta, A, Bm, Cm = mamba_inputs(torch, gen, label, B, S, di, ds)
+    h0 = None
+    if h0_kind == "carried":  # the state the plain version leaves after a 256-token segment
+        pu, pd, _, pB, pC = mamba_inputs(torch, gen, label, B, 256, di, ds)
+        h0 = mamba_scan_plain(pu, pd, A, pB, pC, chunk=256)[1]
+    return u, delta, A, Bm, Cm, h0
+
+
+def run_mamba_cases(torch, card):
+    from repro_torch.kernels.mamba_scan import mamba_scan, mamba_scan_plain
+
+    rows = []
+    for seed, (label, B, S, di, ds, chunk, h0_kind) in enumerate(mamba_cases()):
+        u, delta, A, Bm, Cm, h0 = mamba_case_inputs(torch, label, B, S, di, ds, h0_kind, seed)
+        y, state = mamba_scan(u, delta, A, Bm, Cm, chunk=chunk, h0=h0)
+        torch.cuda.synchronize()
+        plain_y, plain_state = mamba_scan_plain(u, delta, A, Bm, Cm, chunk=chunk, h0=h0)
+        name = f"{label} float32 B{B} S{S} di{di} ds{ds} h0 {h0_kind}"
+        tol, state_tol = scan_tol(plain_y), scan_tol(plain_state)
+        err = check_close(name, y, plain_y, tol)
+        state_err = check_close(f"{name} final state", state, plain_state, state_tol)
+        kernel_ms = cuda_ms(torch, lambda: mamba_scan(u, delta, A, Bm, Cm, chunk=chunk, h0=h0))
+        plain_ms = cuda_ms(torch, lambda: mamba_scan_plain(u, delta, A, Bm, Cm, chunk=chunk, h0=h0), max_reps=5)
+        bound_ms, bound_by = mamba_bound(B, S, di, ds, h0 is not None)
+        row = dict(case=name, dtype="float32", S=S, h0=h0_kind, max_abs_err=err, tol=tol,
+                   state_max_abs_err=state_err, state_tol=state_tol, kernel_ms=kernel_ms,
+                   plain_ms=plain_ms, library_ms=None, library="none", bound_ms=bound_ms,
+                   bound_by=bound_by, card=card)
+        print(json.dumps(row), flush=True)
+        rows.append(row)
+    return rows
+
+
+def mamba_planted_checks(torch, card, planted):
+    """Each faulty selective-scan build must put elements of y or h_fin outside the scan gate."""
+    import ctypes
+
+    import repro_torch.kernels.mamba_scan as ms
+
+    di, ds, chunk = SCAN_GEOMETRY["jamba"]
+    checks = (("mamba_no_drive", "the drive (delta u) B is dropped", 1, 4096, "zero"),
+              ("mamba_ignores_h0", "h0 is ignored (starts from zero)", 4, 1, "carried"),
+              ("mamba_reset_halfway", "the state is reset once, halfway", 1, 4096, "zero"))
+    for seed, (name, fault, B, S, h0_kind) in enumerate(checks, start=200):
+        u, delta, A, Bm, Cm, h0 = mamba_case_inputs(torch, "jamba", B, S, di, ds, h0_kind, seed)
+        plain_y, plain_state = ms.mamba_scan_plain(u, delta, A, Bm, Cm, chunk=chunk, h0=h0)
+        lib = ms._bind(ctypes.CDLL(str(planted[name])))
+        good_lib, ms._lib = ms._lib, lambda: lib
+        try:
+            y, state = ms.mamba_scan(u, delta, A, Bm, Cm, chunk=chunk, h0=h0)
+            torch.cuda.synchronize()
+        finally:
+            ms._lib = good_lib
+        tol, state_tol = scan_tol(plain_y), scan_tol(plain_state)
+        bad, bad_state = n_outside(y, plain_y, tol), n_outside(state, plain_state, state_tol)
+        log("planted", json.dumps(dict(
+            fault=f"selective scan: {fault}", case=f"float32 B{B} S{S} di{di} ds{ds} h0 {h0_kind}",
+            max_abs_err=(y - plain_y).abs().max().item(), tol=tol, outside_tol=bad,
+            state_outside_tol=bad_state, elements=y.numel() + state.numel(), card=card)))
+        if not (bad or bad_state):
+            raise AssertionError(f"planted {name}: the scan gate passed a kernel where {fault}")
+
+
+# ---------------------------------------------------------------------------
+# phases 4-8: the serving paths
 # ---------------------------------------------------------------------------
 
 
@@ -417,11 +563,17 @@ def tree_map(fn, tree):
     return {k: tree_map(fn, v) if isinstance(v, dict) else fn(v) for k, v in tree.items()}
 
 
+def leaves(tree):
+    for v in tree.values():
+        yield from (leaves(v) if isinstance(v, dict) else (v,))
+
+
 def kernel_counters():
     from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.mamba_scan import mamba_scan
     from repro_torch.kernels.wkv6 import wkv6
 
-    return {"flash_attention": flash_attention, "wkv6": wkv6}
+    return {"flash_attention": flash_attention, "wkv6": wkv6, "mamba_scan": mamba_scan}
 
 
 def serve(torch, model, params, card, *, prompts, max_len, slots, max_new, phase, per_pass):
@@ -494,7 +646,7 @@ def rwkv6_phases(torch, card, rng):
     from repro_torch.models import Model
 
     cfg = get_config("rwkv6-7b")
-    per_pass = {kind: {"flash_attention": 0, "wkv6": cfg.n_layers} for kind in ("prefill", "decode")}
+    per_pass = {kind: {"flash_attention": 0, "wkv6": cfg.n_layers, "mamba_scan": 0} for kind in ("prefill", "decode")}
     model = Model(cfg, device="cuda")
     params = model.init(torch.Generator(device="cuda").manual_seed(0))
     log("rwkv6", f"{cfg.name}: {model.count_params(params)} parameters, f32 master weights, "
@@ -521,6 +673,59 @@ def rwkv6_phases(torch, card, rng):
     small_params = Model(small, device="cuda").init(torch.Generator(device="cuda").manual_seed(1))
     compare_with_cpu(torch, small, small_params, rng.integers(0, small.vocab_size, size=(1, 20)),
                      [int(t) for t in rng.integers(0, small.vocab_size, size=20)], "rwkv6-check")
+    return stats, long_stats
+
+
+def jamba_phases(torch, card, rng):
+    """jamba-v0.1-52b cut to two full-width units in bf16: serve, one long prompt, and card against CPU."""
+    from repro_torch.configs import get_config, smoke_variant
+    from repro_torch.models import Model
+
+    # depth cut to 2 of the 4 units, as far as the card forces; widths and the
+    # reference's own bf16 parameter dtype kept
+    full = get_config("jamba-v0.1-52b")
+    cfg = full.replace(n_layers=16, param_dtype="bfloat16")
+    n_mamba = cfg.n_units * sum(s.mixer == "mamba" for s in cfg.pattern)
+    n_attn = cfg.n_units * sum(s.mixer == "attn" for s in cfg.pattern)
+    per_pass = {"prefill": {"flash_attention": n_attn, "wkv6": 0, "mamba_scan": n_mamba},
+                "decode": {"flash_attention": 0, "wkv6": 0, "mamba_scan": 0}}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = Model(cfg, device="cuda")
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    dtypes = sorted({str(t.dtype) for t in leaves(params)})
+    if dtypes != ["torch.bfloat16"]:
+        raise AssertionError(f"jamba: parameter dtypes {dtypes}, expected every leaf in bfloat16")
+    log("jamba", f"{cfg.name} ({cfg.n_layers} of {full.n_layers} layers): {model.count_params(params)} parameters, "
+                 f"every leaf bfloat16, drawn in f32 leaf by leaf; {cfg.dtype} compute; peak of the draw "
+                 f"{torch.cuda.max_memory_allocated()} bytes, {torch.cuda.memory_allocated()} resident")
+    prompts = [rng.integers(0, cfg.vocab_size, size=int(rng.integers(4, 25))) for _ in range(8)]
+    eng, stats = serve(torch, model, params, card, prompts=prompts, max_len=256, slots=4,
+                       max_new=16, phase="jamba-serve", per_pass=per_pass)
+    del params  # the engine holds the same bf16 tensors (the cast makes no copy)
+    S_long = 4096
+    moe = cfg.moe
+    log("jamba-long", f"prompt {S_long}: expert capacity C = ceil(S K cf / E) = "
+                      f"{math.ceil(S_long * moe.top_k * moe.capacity_factor / moe.n_experts)}")
+    long_stats = serve(torch, model, eng.params, card, prompts=[rng.integers(0, cfg.vocab_size, size=S_long)],
+                       max_len=8192, slots=1, max_new=8, phase="jamba-long", per_pass=per_pass)[1]
+    del eng
+    torch.cuda.empty_cache()
+
+    # every layer kind at full width: pattern positions 3 (mamba + moe) and 4 (attention + dense), f32
+    cut = full.replace(n_layers=2, pattern=(full.pattern[3], full.pattern[4]), dtype="float32")
+    cut_params = Model(cut, device="cuda").init(torch.Generator(device="cuda").manual_seed(2))
+    log("jamba-check", f"cut: {[(s.mixer, s.ffn) for s in cut.pattern]}, "
+                       f"{sum(t.numel() for t in leaves(cut_params))} parameters in f32")
+    compare_with_cpu(torch, cut, cut_params, rng.integers(0, cut.vocab_size, size=(1, 300)),
+                     [int(t) for t in rng.integers(0, cut.vocab_size, size=2)], "jamba-check")
+    del cut_params
+    torch.cuda.empty_cache()
+    small = smoke_variant(full)
+    small_params = Model(small, device="cuda").init(torch.Generator(device="cuda").manual_seed(1))
+    compare_with_cpu(torch, small, small_params, rng.integers(0, small.vocab_size, size=(1, 20)),
+                     [int(t) for t in rng.integers(0, small.vocab_size, size=20)], "jamba-check")
     return stats, long_stats
 
 
@@ -555,12 +760,14 @@ def main() -> int:
     planted_fault_check(torch, card, planted)
     wkv_rows = run_wkv6_cases(torch, card)
     wkv6_planted_checks(torch, card, planted)
+    scan_rows = run_mamba_cases(torch, card)
+    mamba_planted_checks(torch, card, planted)
     log("time", f"phases 1-3 done at {time.perf_counter() - t_start:.1f} s")
 
     # 4. serve at full width
     cfg = get_config("gemma2-2b")
-    per_pass = {"prefill": {"flash_attention": cfg.n_layers, "wkv6": 0},
-                "decode": {"flash_attention": 0, "wkv6": 0}}
+    per_pass = {"prefill": {"flash_attention": cfg.n_layers, "wkv6": 0, "mamba_scan": 0},
+                "decode": {"flash_attention": 0, "wkv6": 0, "mamba_scan": 0}}
     model = Model(cfg, device="cuda")
     params = model.init(torch.Generator(device="cuda").manual_seed(0))
     log("serve", f"{cfg.name}: {model.count_params(params)} parameters, f32 master weights, "
@@ -593,18 +800,25 @@ def main() -> int:
 
     # 7. rwkv6-7b at full width
     rwkv_stats, rwkv_long_stats = rwkv6_phases(torch, card, rng)
-    log("time", f"phase 7 done at {time.perf_counter() - t_start:.1f} s")
+    log("time", f"phase 7 done at {time.perf_counter() - t_start:.1f} s; "
+                f"{torch.cuda.memory_allocated()} bytes still allocated")
+
+    # 8. jamba-v0.1-52b, two full-width units in bf16
+    jamba_stats, jamba_long_stats = jamba_phases(torch, card, rng)
+    log("time", f"phase 8 done at {time.perf_counter() - t_start:.1f} s")
 
     main_row = next(r for r in rows if r["case"].startswith("gemma2-serve-long bfloat16")
                     and r["window"] == 4096)
     wkv_row = next(r for r in wkv_rows if r["case"] == "rwkv6 bfloat16 B1 S4096 H64 C64 s0 zero")
+    scan_row = next(r for r in scan_rows if r["case"] == "jamba float32 B1 S4096 di8192 ds16 h0 zero")
     kernels = [dict(
         name="flash_attention", route="cuda", source="src/repro_torch/kernels/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention.py:126", launches=stats["kernel_launches"]["flash_attention"],
         max_abs_err=main_row["max_abs_err"], ms=main_row["kernel_ms"], plain_ms=main_row["plain_ms"],
         bound_ms=main_row["bound_ms"], bound_by=main_row["bound_by"], library_ms=main_row["library_ms"],
         tol=main_row["tol"], shape=main_row["case"], library="sdpa, same mask, softcap 0",
-        launches_long_prompt=long_stats["kernel_launches"]["flash_attention"], card=card,
+        launches_long_prompt=long_stats["kernel_launches"]["flash_attention"],
+        launches_jamba=jamba_stats["kernel_launches"]["flash_attention"], card=card,
     ), dict(
         name="wkv6", route="cuda", source="src/repro_torch/kernels/csrc/wkv6.cu",
         replaces="src/repro/kernels/rwkv6_scan.py:96", launches=rwkv_stats["kernel_launches"]["wkv6"],
@@ -612,6 +826,13 @@ def main() -> int:
         bound_ms=wkv_row["bound_ms"], bound_by=wkv_row["bound_by"], library_ms=None,
         tol=wkv_row["tol"], shape=wkv_row["case"], library="none",
         launches_long_prompt=rwkv_long_stats["kernel_launches"]["wkv6"], card=card,
+    ), dict(
+        name="mamba_scan", route="cuda", source="src/repro_torch/kernels/csrc/mamba_scan.cu",
+        replaces="src/repro/kernels/mamba_scan.py:76", launches=jamba_stats["kernel_launches"]["mamba_scan"],
+        max_abs_err=scan_row["max_abs_err"], ms=scan_row["kernel_ms"], plain_ms=scan_row["plain_ms"],
+        bound_ms=scan_row["bound_ms"], bound_by=scan_row["bound_by"], library_ms=None,
+        tol=scan_row["tol"], shape=scan_row["case"], library="none",
+        launches_long_prompt=jamba_long_stats["kernel_launches"]["mamba_scan"], card=card,
     )]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi_line(), flush=True)

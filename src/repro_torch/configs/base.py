@@ -6,7 +6,9 @@ of a ``pattern`` of :class:`LayerSpec`; parameters and caches are stacked per
 pattern position with a leading ``n_units`` dimension, as in the reference.
 Fields that only the reference's other families, training or sharding read
 are left out; they arrive with the slices that port those paths.  The rwkv
-fields (:class:`RWKVSpec`, ``ssm_chunk``, ``sub_quadratic``) serve rwkv6-7b.
+fields (:class:`RWKVSpec`, ``ssm_chunk``, ``sub_quadratic``) serve rwkv6-7b;
+the mamba and moe fields (:class:`MambaSpec`, :class:`MoESpec`,
+``moe_block``) serve jamba-v0.1-52b.
 """
 
 from __future__ import annotations
@@ -15,7 +17,26 @@ import dataclasses
 from dataclasses import dataclass
 from typing import Dict, Optional, Tuple
 
-__all__ = ["RWKVSpec", "LayerSpec", "ModelConfig", "smoke_variant"]
+__all__ = ["MoESpec", "MambaSpec", "RWKVSpec", "LayerSpec", "ModelConfig", "smoke_variant"]
+
+
+@dataclass(frozen=True)
+class MoESpec:
+    n_experts: int
+    top_k: int
+    d_ff: int                     # per-expert hidden width
+    shared_expert: bool = False   # Llama4-style always-on expert
+    router_jitter: float = 0.0
+    load_balance_coef: float = 0.01
+    capacity_factor: float = 1.25  # per-expert slots = ceil(S·K·cf/E)
+
+
+@dataclass(frozen=True)
+class MambaSpec:
+    d_state: int = 16
+    d_conv: int = 4
+    expand: int = 2
+    dt_rank: int = 0  # 0 ⇒ ceil(d_model/16)
 
 
 @dataclass(frozen=True)
@@ -61,12 +82,15 @@ class ModelConfig:
     final_softcap: float = 0.0     # Gemma2 final-logit softcap
     post_block_norm: bool = False  # Gemma2 sandwich norms
     tie_embeddings: bool = True
+    moe: Optional[MoESpec] = None
+    mamba: Optional[MambaSpec] = None
     rwkv: Optional[RWKVSpec] = None
     dtype: str = "bfloat16"        # compute dtype
     param_dtype: str = "float32"   # master-weight dtype
     attn_chunk_q: int = 512        # query / key chunks of the plain attention
     attn_chunk_kv: int = 1024
-    ssm_chunk: int = 256           # chunk of the plain WKV recurrence
+    ssm_chunk: int = 256           # chunk of the plain WKV and selective scans
+    moe_block: int = 0             # MoE dispatch block (0 ⇒ whole sequence)
     # capability flags
     sub_quadratic: bool = False    # eligible for long_500k
 
@@ -79,6 +103,10 @@ class ModelConfig:
         if any(s.mixer in ("attn", "attn_local") for s in self.pattern):
             if not (self.n_heads > 0 and self.n_kv_heads > 0):
                 raise ValueError(f"{self.name}: attention needs n_heads and n_kv_heads")
+        if any(s.ffn == "moe" for s in self.pattern) and self.moe is None:
+            raise ValueError(f"{self.name}: moe layers need a MoESpec")
+        if any(s.mixer == "mamba" for s in self.pattern) and self.mamba is None:
+            raise ValueError(f"{self.name}: mamba mixers need a MambaSpec")
         if any(s.mixer == "rwkv" for s in self.pattern) and self.rwkv is None:
             raise ValueError(f"{self.name}: rwkv mixers need an RWKVSpec")
 
@@ -97,7 +125,8 @@ class ModelConfig:
 def smoke_variant(cfg: ModelConfig) -> ModelConfig:
     """A reduced same-family config for CPU tests (the reference's own reduction).
 
-    Keeps the pattern but shrinks width, depth (one unit), vocab and window.
+    Keeps the pattern but shrinks width, depth (one unit), vocab, window and
+    expert count.
     """
     kw: Dict = dict(
         d_model=64,
@@ -114,6 +143,15 @@ def smoke_variant(cfg: ModelConfig) -> ModelConfig:
         kw["n_heads"] = 4
         kw["n_kv_heads"] = max(1, 4 * cfg.n_kv_heads // max(cfg.n_heads, 1))
         kw["head_dim"] = 16
+    if cfg.moe is not None:
+        kw["moe"] = MoESpec(
+            n_experts=4,
+            top_k=min(cfg.moe.top_k, 2),
+            d_ff=64,
+            shared_expert=cfg.moe.shared_expert,
+        )
+    if cfg.mamba is not None:
+        kw["mamba"] = MambaSpec(d_state=8, d_conv=4, expand=2)
     if cfg.rwkv is not None:
         kw["rwkv"] = RWKVSpec(head_dim=16)
     if cfg.attn_window:

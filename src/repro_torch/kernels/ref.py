@@ -1,8 +1,8 @@
 """Naive oracles for the kernels — counterpart of ``src/repro/kernels/ref.py``.
 
 Deliberately simple so that they are obviously right: attention builds the
-full [S, T] score matrix in f32, and the WKV recurrence steps one token at a
-time.  Tests hold the plain versions and the CUDA kernels against them.
+full [S, T] score matrix in f32, and the WKV recurrence and the selective
+scan step one token at a time.  Tests hold the plain versions and the CUDA kernels against them.
 """
 
 from __future__ import annotations
@@ -12,7 +12,7 @@ from typing import Optional, Tuple
 
 import torch
 
-__all__ = ["attention_ref", "wkv6_ref"]
+__all__ = ["attention_ref", "wkv6_ref", "mamba_scan_ref"]
 
 _BIG_NEG = -1e30
 
@@ -76,3 +76,31 @@ def wkv6_ref(
         outs.append(torch.einsum("bhi,bhij->bhj", rf[:, t], s_eff))
         state = wf[:, t, :, :, None] * state + kv
     return torch.stack(outs, dim=1).to(r.dtype), state
+
+
+def mamba_scan_ref(
+    u: torch.Tensor,      # [B, S, di]
+    delta: torch.Tensor,  # [B, S, di]  (already softplus'd)
+    A: torch.Tensor,      # [di, ds]    (negative)
+    Bmat: torch.Tensor,   # [B, S, ds]
+    Cmat: torch.Tensor,   # [B, S, ds]
+    *,
+    h0: Optional[torch.Tensor] = None,  # [B, di, ds]
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Sequential selective scan, one token at a time:
+
+        h_t = exp(Δ_t A) ∘ h_{t-1} + (Δ_t u_t) B_t ;  y_t = C_t · h_t
+
+    Returns (y [B,S,di] in u's dtype, h_final [B,di,ds] in f32).
+    """
+    B, S, di = u.shape
+    ds = A.shape[1]
+    uf, df, Af, Bf, Cf = (x.float() for x in (u, delta, A, Bmat, Cmat))
+    h = torch.zeros((B, di, ds), dtype=torch.float32, device=u.device) if h0 is None else h0.float()
+    ys = []
+    for t in range(S):
+        decay = torch.exp(df[:, t, :, None] * Af[None])                 # [B,di,ds]
+        drive = (df[:, t] * uf[:, t])[..., None] * Bf[:, t, None, :]    # [B,di,ds]
+        h = decay * h + drive
+        ys.append(torch.einsum("bdn,bn->bd", h, Cf[:, t]))
+    return torch.stack(ys, dim=1).to(u.dtype), h

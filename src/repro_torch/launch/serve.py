@@ -4,6 +4,11 @@ Counterpart of ``src/repro/launch/serve.py``.  Builds the model from a seeded
 ``torch.Generator``, boots the continuous-batching engine and serves a
 synthetic request stream (numpy-seeded prompts of 4–23 tokens), printing the
 throughput stats as JSON.  Runs on the card unless ``--device cpu`` is given.
+On the card it first works out, from a ``meta`` init that draws nothing,
+the bytes the weights will take, and refuses before building or drawing
+anything when they exceed the card's free memory: jamba-v0.1-52b at full
+depth (51.3 B parameters, 102.6 GB even in bf16) does not fit one H100, and
+``chip_smoke.py`` serves it cut in depth through ``Model`` and ``ServeEngine``.
 ``--profile DIR`` traces the serving run with ``torch.profiler`` and writes
 ``DIR/trace.json.gz`` (Chrome trace) and ``DIR/ops.txt`` (op tables by device
 and by host time); the stats then
@@ -29,10 +34,39 @@ import numpy as np
 import torch
 
 from repro_torch.configs import get_config, smoke_variant
+from repro_torch.convert import flatten
 from repro_torch.device import resolve_device
 from repro_torch.kernels._build import build_all
 from repro_torch.models import Model
+from repro_torch.models.layers import cast_for_compute
+from repro_torch.models.transformer import count_params, init_lm
 from repro_torch.serve import ServeConfig, ServeEngine
+
+
+def weight_bytes(cfg) -> int:
+    """Bytes of the served weights at their peak, from a ``meta`` init (nothing drawn):
+    the master weights in ``cfg.param_dtype`` plus the compute-dtype copy that the
+    engine makes of every leaf it casts (none for a leaf already in that dtype)."""
+    master = init_lm(cfg, None, "meta")
+    cast = flatten(cast_for_compute(master, getattr(torch, cfg.dtype)))
+    master = flatten(master)
+    return sum(t.numel() * t.element_size() for p, t in master.items()) + sum(
+        t.numel() * t.element_size() for p, t in cast.items() if t is not master[p])
+
+
+def check_fits(cfg, free_bytes: int) -> None:
+    """Raise before anything is drawn when the weights need more than ``free_bytes``."""
+    need = weight_bytes(cfg)
+    if need <= free_bytes:
+        return
+    n = count_params(init_lm(cfg, None, "meta"))
+    lean = weight_bytes(cfg.replace(param_dtype=cfg.dtype))
+    raise RuntimeError(
+        f"{cfg.name} ({cfg.n_layers} layers, {n} parameters) needs {need / 1e9:.1f} GB of weights "
+        f"({cfg.param_dtype} master weights and their {cfg.dtype} copy; {lean / 1e9:.1f} GB with "
+        f"{cfg.dtype} master weights), more than the {free_bytes / 1e9:.1f} GB free on the card; "
+        f"nothing was drawn. Serve a depth cut through Model and ServeEngine, as chip_smoke.py does."
+    )
 
 
 def main(argv=None) -> int:
@@ -54,7 +88,8 @@ def main(argv=None) -> int:
         cfg = smoke_variant(cfg)
     device = resolve_device(args.device)
     build_s = 0.0
-    if device.type == "cuda":  # build the kernels before anything is timed
+    if device.type == "cuda":  # refuse what cannot fit, then build the kernels before anything is timed
+        check_fits(cfg, torch.cuda.mem_get_info(device)[0])
         t0 = time.perf_counter()
         build_all()
         build_s = time.perf_counter() - t0

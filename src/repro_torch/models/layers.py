@@ -57,11 +57,24 @@ class Init:
         return Init(self.generator, self.device, self.param_dtype, self.lead + (n,))
 
     def normal(self, shape: Tuple[int, ...], std: float) -> torch.Tensor:
+        """N(0, std²) drawn in f32 and cast, as the reference draws every leaf.
+
+        The draw is scaled in place, so one f32 leaf is alive at a time: with
+        bf16 parameters the peak is the weights plus the largest leaf in f32.
+        """
         shape = self.lead + tuple(shape)
         if self.device.type == "meta":
             return torch.empty(shape, dtype=self.param_dtype, device="meta")
         w = torch.randn(shape, generator=self.generator, device=self.device, dtype=torch.float32)
-        return (w * std).to(self.param_dtype)
+        return w.mul_(std).to(self.param_dtype)
+
+    def uniform(self, shape: Tuple[int, ...], low: float, high: float) -> torch.Tensor:
+        """U(low, high) drawn in f32, left in f32 for the caller to transform and cast."""
+        shape = self.lead + tuple(shape)
+        if self.device.type == "meta":
+            return torch.empty(shape, dtype=torch.float32, device="meta")
+        w = torch.rand(shape, generator=self.generator, device=self.device, dtype=torch.float32)
+        return w.mul_(high - low).add_(low)
 
     def fill(self, shape: Tuple[int, ...], value: float) -> torch.Tensor:
         return torch.full(self.lead + tuple(shape), value, dtype=self.param_dtype, device=self.device)
@@ -212,15 +225,19 @@ def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
 
 
 _COMPUTE_LEAVES = ("w", "b", "table")
+_F32_SUBTREES = ("router",)  # the MoE router gates in f32 from its master weights
 
 
 def cast_for_compute(params: Params, dtype: torch.dtype) -> Params:
     """Cast every weight that is cast at use (dense ``w``/``b``, embedding ``table``) once.
 
-    Norm scales stay in their f32 master dtype, as :func:`norm` reads them in f32.
+    Norm scales stay in their master dtype, as :func:`norm` reads them in f32,
+    and so does the MoE router, which the reference reads in f32; a leaf
+    already in the compute dtype is kept as it is, not copied.
     """
     return {
-        name: cast_for_compute(leaf, dtype) if isinstance(leaf, dict)
+        name: leaf if name in _F32_SUBTREES
+        else cast_for_compute(leaf, dtype) if isinstance(leaf, dict)
         else (leaf.to(dtype) if name in _COMPUTE_LEAVES else leaf)
         for name, leaf in params.items()
     }

@@ -28,7 +28,7 @@ class Model:
         self.device = resolve_device(device)
 
     def init(self, generator: torch.Generator):
-        """Random f32 master weights on this model's device, drawn from ``generator``."""
+        """Random master weights in ``cfg.param_dtype`` on this model's device, drawn from ``generator``."""
         if generator.device.type != self.device.type:
             raise ValueError(f"generator is on {generator.device}, the model on {self.device}")
         return transformer.init_lm(self.cfg, generator, self.device)

@@ -5,11 +5,10 @@ of each pattern position are stacked across units with a leading ``n_units``
 dimension, as in the reference, and the reference's ``lax.scan`` over units is
 a Python loop here.  Ported: ``init_lm``, ``_embed_inputs``, ``_logits``,
 ``init_decode_cache``, ``decode_step``, ``prefill`` and ``count_params`` for
-attention mixers with dense FFNs (gemma2) and RWKV-6 time-mix with channel-mix
-(rwkv6).  The mamba and moe layers raise ``NotImplementedError`` until their
-slices land (ROADMAP.md queue 1).  Caches are updated in place: attention
-writes its new key/value rows, rwkv layers copy their new WKV state and
-token-shift carries over the old ones.
+every mixer (attention, Mamba-1, RWKV-6 time-mix) and every FFN (dense, MoE,
+RWKV-6 channel-mix) of the decoder-only family: gemma2, rwkv6 and jamba.
+Caches are updated in place: attention writes its new key/value rows, rwkv
+and mamba layers copy their new states and carries over the old ones.
 
 Two reference quirks are kept on purpose: prefill scales the embedding when
 ``norm == "rmsnorm" and post_block_norm`` but decode when ``post_block_norm``
@@ -29,6 +28,8 @@ import torch
 
 from .attention import attention_layer, decode_attention_layer, init_attention, init_kv_cache
 from .layers import Init, Params, embed, init_embedding, init_mlp, init_norm, mlp, norm, softcap, unembed
+from .mamba import init_mamba, init_mamba_cache, mamba_decode_step, mamba_layer_with_state
+from .moe import init_moe, moe_layer
 from .rwkv6 import init_rwkv_cache, init_rwkv_cmix, init_rwkv_tmix, rwkv_cmix, rwkv_tmix
 
 __all__ = [
@@ -38,11 +39,6 @@ __all__ = [
     "init_decode_cache",
     "count_params",
 ]
-
-_UNPORTED = {
-    "mamba": "ROADMAP.md queue 1, item 'models/mamba.py'",
-    "moe": "ROADMAP.md queue 1, item 'models/moe.py'",
-}
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -55,13 +51,6 @@ def _pdtype(cfg) -> torch.dtype:
     return _DTYPES[cfg.param_dtype]
 
 
-def _check_ported(cfg) -> None:
-    for spec in cfg.pattern:
-        for kind in (spec.mixer, spec.ffn):
-            if kind in _UNPORTED:
-                raise NotImplementedError(f"{cfg.name}: '{kind}' layers are not ported yet ({_UNPORTED[kind]})")
-
-
 # ---------------------------------------------------------------------------
 # init
 # ---------------------------------------------------------------------------
@@ -71,11 +60,15 @@ def _init_layer(init: Init, cfg, spec) -> Params:
     p: Params = {"norm1": init_norm(init, cfg.norm, cfg.d_model)}
     if spec.mixer == "rwkv":
         p["mixer"] = init_rwkv_tmix(init, cfg)
+    elif spec.mixer == "mamba":
+        p["mixer"] = init_mamba(init, cfg)
     else:
         p["mixer"] = init_attention(init, cfg)
     p["norm2"] = init_norm(init, cfg.norm, cfg.d_model)
     if spec.ffn == "rwkv_cmix":
         p["ffn"] = init_rwkv_cmix(init, cfg)
+    elif spec.ffn == "moe":
+        p["ffn"] = init_moe(init, cfg)
     else:
         p["ffn"] = init_mlp(init, cfg.d_model, cfg.d_ff, activation=cfg.activation)
     if cfg.post_block_norm:
@@ -88,13 +81,15 @@ def init_lm(cfg, generator, device) -> Params:
     """Random parameters with the reference's shapes and distributions.
 
     Dense weights are normal·1/√fan_in, embeddings normal·0.02, the attention
-    output projection normal/√(H·hd), norm scales ones; the rwkv leaves follow
-    ``init_rwkv_tmix`` / ``init_rwkv_cmix``.  ``device="meta"``
-    gives the shapes without drawing or allocating anything.
+    output projection normal/√(H·hd), norm scales ones; the rwkv, mamba and
+    moe leaves follow ``init_rwkv_tmix`` / ``init_rwkv_cmix``, ``init_mamba``
+    and ``init_moe``.  Every leaf is drawn in f32 and stored in
+    ``cfg.param_dtype``, one leaf at a time.  ``device="meta"`` gives the
+    shapes without drawing or allocating anything.
     """
-    _check_ported(cfg)
     if cfg.tie_embeddings is False:
-        raise NotImplementedError(f"{cfg.name}: untied output heads are not ported yet")
+        raise NotImplementedError(
+            f"{cfg.name}: untied output heads are not ported yet (ROADMAP.md queue 1, item 2)")
     init = Init(generator, device, _pdtype(cfg))
     params: Params = {"embed": init_embedding(init, cfg.vocab_size, cfg.d_model)}
     params["final_norm"] = init_norm(init, cfg.norm, cfg.d_model)
@@ -145,7 +140,10 @@ def _rwkv_mix(lp, h, lc, cfg, dt):
 
 
 def _block(lp, spec, lc, x, mix, cfg, dt):
-    """Residual add of the mixer output, then the FFN block (sandwich norms if set)."""
+    """Residual add of the mixer output, then the FFN block (sandwich norms if set).
+
+    The MoE's load-balance loss is a training term; serving drops it.
+    """
     if cfg.post_block_norm:
         mix = norm(lp["norm1_post"], mix, kind=cfg.norm)
     x = x + mix
@@ -153,6 +151,8 @@ def _block(lp, spec, lc, x, mix, cfg, dt):
     if spec.ffn == "rwkv_cmix":
         f, st = rwkv_cmix(lp["ffn"], h, cfg, dtype=dt, state={"shift": lc["cshift"]})
         lc["cshift"].copy_(st["shift"])
+    elif spec.ffn == "moe":
+        f, _ = moe_layer(lp["ffn"], h, cfg, dtype=dt)
     else:
         f = mlp(lp["ffn"], h, activation=cfg.activation, dtype=dt)
     if cfg.post_block_norm:
@@ -167,13 +167,15 @@ def _block(lp, spec, lc, x, mix, cfg, dt):
 
 def init_decode_cache(cfg, batch: int, max_len: int, *, device) -> Dict:
     """Stacked-per-position caches: K/V for attention (local layers never hold
-    more than the window), the f32 WKV state and token-shift carries for rwkv."""
-    _check_ported(cfg)
+    more than the window), the f32 WKV state and token-shift carries for rwkv,
+    the conv tail and the f32 SSM state for mamba."""
     dt = _dtype(cfg)
     cache: Dict[str, Any] = {}
     for i, spec in enumerate(cfg.pattern):
         if spec.mixer == "rwkv":
             entry = init_rwkv_cache(cfg, batch, n_layers_of_kind=cfg.n_units, dtype=dt, device=device)
+        elif spec.mixer == "mamba":
+            entry = init_mamba_cache(cfg, batch, n_layers_of_kind=cfg.n_units, dtype=dt, device=device)
         else:
             T = max_len
             if spec.mixer == "attn_local" and cfg.attn_window:
@@ -208,6 +210,10 @@ def decode_step(params, cache: Dict, token: torch.Tensor, pos, cfg):
             h = norm(lp["norm1"], x, kind=cfg.norm)
             if spec.mixer == "rwkv":
                 mix = _rwkv_mix(lp, h, lc, cfg, dt)
+            elif spec.mixer == "mamba":
+                mix, conv, ssm = mamba_decode_step(lp["mixer"], h, lc["conv"], lc["ssm"], cfg, dtype=dt)
+                lc["conv"].copy_(conv)
+                lc["ssm"].copy_(ssm)
             else:
                 T = lc["k"].shape[1]
                 rolling = _rolling(cfg, spec, T)
@@ -242,6 +248,10 @@ def prefill(params, batch: Dict[str, torch.Tensor], cfg, *, max_len: int):
             h = norm(lp["norm1"], x, kind=cfg.norm)
             if spec.mixer == "rwkv":  # from the zero state of the fresh cache
                 mix = _rwkv_mix(lp, h, lc, cfg, dt)
+            elif spec.mixer == "mamba":
+                mix, conv, ssm = mamba_layer_with_state(lp["mixer"], h, cfg, dtype=dt)
+                lc["conv"].copy_(conv)
+                lc["ssm"].copy_(ssm)
             else:
                 mix, (k_new, v_new) = attention_layer(
                     lp["mixer"], h, positions, cfg, kind=spec.mixer, dtype=dt, return_kv=True,

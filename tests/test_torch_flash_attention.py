@@ -33,6 +33,8 @@ CASES = {
     "gemma2-global": (1, 64, 64, 8, 4, 256, True, 0, 50.0, 0, 32, 32),
     # ragged prompt length (the serve path's 4-24 token prompts)
     "ragged-23": (2, 23, 23, 8, 4, 16, True, 0, 50.0, 0, 23, 23),
+    # jamba's attention layer (H32 Kv8 hd128, no window or softcap) at a serve prompt's length
+    "jamba-ragged-23": (1, 23, 23, 32, 8, 128, True, 0, 0.0, 0, 23, 23),
     # queries continuing a cached prefix: T = q_offset + S
     "q-offset": (1, 16, 48, 4, 2, 16, True, 24, 50.0, 32, 16, 16),
 }
