@@ -13,16 +13,21 @@ Phases, each of which raises on failure (the script then exits non-zero):
               at the smoke shape, the full model's geometry and the serve paths' own
               shapes, with the stated tolerance; one JSON line per case with
               kernel, plain, library (one PyTorch call, where there is one) and
-              bound times;
+              bound times; flash rows also give the kernel variant that the
+              launch counters show ran (bf16 must run the tensor-core kernel, f32
+              the scalar one), TFLOP/s of the bound's work, and for a plain causal
+              mask SDPA with is_causal=True;
    planted  — copies of the kernels with a fault built in must fail the same gates:
-              flash attention that skips the last live KV tile of every block,
+              flash attention that (a) skips the last live KV tile of every block or
+              (b) treats the diagonal tiles as interior and skips their causal mask,
               WKV-6 that (a) drops the bonus u, (b) ignores s0 or (c) resets its
               state halfway through the sequence, and the selective scan that
               (a) drops the drive, (b) ignores h0 or (c) resets its state halfway;
 4. serve    — gemma2-2b at full width (26 layers, bf16 compute, f32 weights from a
               seeded torch.Generator) through ServeEngine: 8 prompts of 4-24 tokens,
               4 slots, 16 new tokens, greedy; flash attention must launch exactly 26
-              times per prefill and WKV-6 never;
+              times per prefill, every launch on the tensor-core kernel, and WKV-6
+              never;
 5. long     — one 4608-token prompt (max_len 8192): the local layers' 4096 window
               binds inside the kernel and their ring cache is used;
 6. check    — the card's logits against the CPU's (plain attention) on the same
@@ -39,7 +44,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
               every width full, the reference's param_dtype="bfloat16" weights drawn
               leaf by leaf: jamba-serve as in phase 4, with the selective scan launched
               exactly 14 times and flash attention 2 times per prefill and neither per
-              decode step (decode is the reference's elementwise step); jamba-long, one
+              decode step (decode is the reference's elementwise step), every flash
+              launch on the tensor-core kernel; jamba-long, one
               4096-token prompt (MoE capacity 640); jamba-check, card against CPU at
               2e-3 on a full-width 2-layer cut that keeps pattern positions 3 and 4
               (mamba + moe, attention + dense) in f32 over a 300-token prompt plus 2
@@ -137,7 +143,7 @@ def check_close(name: str, got, want, tol) -> float:
 
 
 def attention_cases():
-    """(label, dtype, B, S, T, H, Kv, hd, window, cap, q_offset); all causal."""
+    """(label, dtype, B, S, T, H, Kv, hd, window, cap, q_offset, causal)."""
     cases = [("smoke", "float32", 2, 64, 64, 4, 2, 16, 0, 0.0, 0),
              ("smoke", "bfloat16", 2, 64, 64, 4, 2, 16, 0, 0.0, 0)]
     for dtype in ("bfloat16", "float32"):
@@ -151,20 +157,34 @@ def attention_cases():
     for dtype in ("bfloat16", "float32"):  # jamba-serve's prompts (one partial tile) and jamba-check's 300 tokens
         for S in (4, 23, 300):
             cases.append(("jamba", dtype, 1, S, S, 32, 8, 128, 0, 0.0, 0))
+    for dtype in ("bfloat16", "float32"):  # stablelm-3b's geometry: hd 80 ends in a partial 64-column box
+        for S in (23, 1024):
+            cases.append(("stablelm", dtype, 1, S, S, 32, 32, 80, 0, 0.0, 0))
+    # a window that no tile size divides, and a ragged S that is not a multiple of the 128-row q tile
+    cases.append(("gemma2-window100", "bfloat16", 1, 1024, 1024, 8, 4, 256, 100, 50.0, 0))
+    cases.append(("gemma2-ragged", "bfloat16", 1, 4600, 4600, 8, 4, 256, 4096, 50.0, 0))
+    cases = [case + (True,) for case in cases]
+    # the tensor-core kernel's other paths: small head dims (8 pads the contraction to 16, the
+    # wrapper pads 12 to 16), two batch rows with a ragged S, and a bidirectional mask with T != S
+    for dtype in ("bfloat16", "float32"):
+        for hd in (8, 12, 32):
+            cases.append((f"hd{hd}", dtype, 1, 200, 200, 4, 2, hd, 0, 50.0, 0, True))
+        cases.append(("B2-ragged", dtype, 2, 300, 300, 8, 4, 256, 0, 50.0, 0, True))
+        cases.append(("bidirectional", dtype, 2, 130, 260, 4, 4, 128, 0, 0.0, 0, False))
     return cases
 
 
-def attention_bound(torch, dtype, B, S, T, H, Kv, hd, window, q_offset):
-    """Least time for the work this mask needs: max(bytes / HBM rate, FLOP / peak)."""
+def attention_bound(torch, dtype, B, S, T, H, Kv, hd, window, q_offset, causal=True):
+    """Least time for the work this mask needs: max(bytes / HBM rate, FLOP / peak), and the FLOP."""
     q_pos = q_offset + torch.arange(S, dtype=torch.float64)
     lo = (q_pos - window + 1).clamp(min=0) if window else torch.zeros_like(q_pos)
-    hi = q_pos.clamp(max=T - 1)
+    hi = q_pos.clamp(max=T - 1) if causal else torch.full_like(q_pos, T - 1)
     pairs = float((hi - lo + 1).clamp(min=0).sum()) * B * H
     flops = 4.0 * hd * pairs                              # QK^T and PV, 2 FLOP per MAC
     elt = 2 if dtype == "bfloat16" else 4
     nbytes = elt * (2 * B * S * H * hd + 2 * B * T * Kv * hd)  # q, out, k, v once each
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype]
-    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), flops
 
 
 def attention_inputs(torch, gen, dtype, B, S, T, H, Kv, hd):
@@ -180,13 +200,19 @@ def run_kernel_cases(torch, card):
 
     rows = []
     gen = torch.Generator(device="cuda").manual_seed(0)
-    for label, dtype, B, S, T, H, Kv, hd, window, cap, q_offset in attention_cases():
+    for label, dtype, B, S, T, H, Kv, hd, window, cap, q_offset, causal in attention_cases():
         q, k, v = attention_inputs(torch, gen, dtype, B, S, T, H, Kv, hd)
-        kw = dict(causal=True, window=window, logit_softcap=cap, q_offset=q_offset)
+        kw = dict(causal=causal, window=window, logit_softcap=cap, q_offset=q_offset)
+        name = (f"{label} {dtype} B{B} S{S} T{T} H{H} Kv{Kv} hd{hd} window{window} cap{cap} q_offset{q_offset}"
+                + ("" if causal else " bidirectional"))
+        flash_attention.launches_wgmma = flash_attention.launches_scalar = 0
         out = flash_attention(q, k, v, **kw)
         torch.cuda.synchronize()
+        moved = {"wgmma": flash_attention.launches_wgmma, "scalar": flash_attention.launches_scalar}
+        expected = "wgmma" if dtype == "bfloat16" else "scalar"  # the wrapper's fixed rule, held to the counters
+        if moved != {kind: int(kind == expected) for kind in moved}:
+            raise AssertionError(f"{name}: launches by kernel {moved}; expected one launch of the {expected} kernel")
         plain = flash_attention_plain(q, k, v, **kw)
-        name = f"{label} {dtype} B{B} S{S} T{T} H{H} Kv{Kv} hd{hd} window{window} cap{cap} q_offset{q_offset}"
         tol = kernel_tol(dtype, plain)
         err = check_close(name, out, plain, tol)
         kernel_ms = cuda_ms(torch, lambda: flash_attention(q, k, v, **kw))
@@ -196,16 +222,21 @@ def run_kernel_cases(torch, card):
         qh, kh, vh = (x.transpose(1, 2) for x in (q, k, v))
         q_pos = q_offset + torch.arange(S, device="cuda")[:, None]
         k_pos = torch.arange(T, device="cuda")[None, :]
-        mask = k_pos <= q_pos
+        mask = k_pos <= q_pos if causal else torch.ones((S, T), dtype=torch.bool, device="cuda")
         if window:
             mask &= k_pos > q_pos - window
         library_ms = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
             qh, kh, vh, attn_mask=mask, scale=1.0 / math.sqrt(hd), enable_gqa=True), max_reps=5)
-        bound_ms, bound_by = attention_bound(torch, dtype, B, S, T, H, Kv, hd, window, q_offset)
-        row = dict(case=name, dtype=dtype, S=S, T=T, window=window, q_offset=q_offset,
-                   max_abs_err=err, tol=tol, kernel_ms=kernel_ms, plain_ms=plain_ms,
-                   library_ms=library_ms, library="sdpa, same mask, softcap 0",
-                   bound_ms=bound_ms, bound_by=bound_by, card=card)
+        # a plain causal mask also has SDPA's own causal path, with no mask tensor: a stronger yardstick
+        library_causal_ms = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+            qh, kh, vh, is_causal=True, scale=1.0 / math.sqrt(hd), enable_gqa=True),
+            max_reps=5) if causal and not window and not q_offset and S == T else None
+        bound_ms, bound_by, flops = attention_bound(torch, dtype, B, S, T, H, Kv, hd, window, q_offset, causal)
+        row = dict(case=name, dtype=dtype, S=S, T=T, window=window, q_offset=q_offset, causal=causal,
+                   variant=next(kind for kind, n in moved.items() if n),
+                   max_abs_err=err, tol=tol, kernel_ms=kernel_ms, tflops=flops / kernel_ms / 1e9,
+                   plain_ms=plain_ms, library_ms=library_ms, library="sdpa, same mask, softcap 0",
+                   library_causal_ms=library_causal_ms, bound_ms=bound_ms, bound_by=bound_by, card=card)
         print(json.dumps(row), flush=True)
         rows.append(row)
     return rows
@@ -213,8 +244,9 @@ def run_kernel_cases(torch, card):
 
 # planted faults, by the copy's name: (kernel source, text of the source, its faulty replacement)
 PLANTED = {
-    "flash_skip_last_tile": ("flash_attention", "for (int kt = kt_begin; kt < kt_end; ++kt)",
-                             "for (int kt = kt_begin; kt < kt_end - 1; ++kt)"),
+    "flash_skip_last_tile": ("flash_attention", "const int kt_end = k_hi > k_lo ? (k_hi - 1) / BK + 1 : kt_begin;",
+                             "const int kt_end = k_hi > k_lo ? (k_hi - 1) / BK : kt_begin;"),
+    "flash_diagonal_as_interior": ("flash_attention", "(!causal || k0 + BK - 1 <= wq_lo)", "true"),
     "wkv6_no_bonus": ("wkv6", "fmaf(uu[m], kv, st[m])", "st[m]"),
     "wkv6_ignores_s0": ("wkv6", "const bool has_s0 = s0 != nullptr;", "const bool has_s0 = false;"),
     "wkv6_reset_halfway": ("wkv6", "    for (int tt = 0; tt < n; ++tt) {\n",
@@ -235,16 +267,17 @@ PLANTED = {
 }
 
 
-def planted_sources():
-    """Write each faulty copy under build/ (never into the source tree); returns {name: (src, lib)}."""
+def planted_sources(table=PLANTED, folder="planted"):
+    """Write each edited copy of ``table`` under build/<folder>/ (never into the source
+    tree); returns {name: (src, lib)}."""
     from repro_torch.kernels import _build
 
     out = {}
-    for name, (kernel, good, bad) in PLANTED.items():
+    for name, (kernel, good, bad) in table.items():
         src = (_build.CSRC / f"{kernel}.cu").read_text()
         if src.count(good) != 1:
-            raise AssertionError(f"planted {name}: {good!r} is not in {kernel}.cu exactly once")
-        path = _build.BUILD_DIR / "planted" / f"{name}.cu"
+            raise AssertionError(f"{folder} {name}: {good!r} is not in {kernel}.cu exactly once")
+        path = _build.BUILD_DIR / folder / f"{name}.cu"
         path.parent.mkdir(parents=True, exist_ok=True)
         path.write_text(src.replace(good, bad))
         out[name] = (path, path.with_suffix(".so"))
@@ -273,33 +306,35 @@ def build_everything(card):
 
 
 def planted_fault_check(torch, card, planted):
-    """A kernel that skips the last live KV tile of each block must fail the bf16 gate."""
+    """Each faulty build of the tensor-core flash kernel must fail the bf16 gate."""
     import ctypes
 
     import repro_torch.kernels.flash_attention as fa
-
-    lib = fa._bind(ctypes.CDLL(str(planted["flash_skip_last_tile"])))
 
     B, S, H, Kv, hd = 1, 4608, 8, 4, 256
     kw = dict(causal=True, window=4096, logit_softcap=50.0, q_offset=0)
     q, k, v = attention_inputs(torch, torch.Generator(device="cuda").manual_seed(1),
                                "bfloat16", B, S, S, H, Kv, hd)
     plain = fa.flash_attention_plain(q, k, v, **kw)
-    good_lib, fa._lib = fa._lib, lambda: lib
-    try:
-        out = fa.flash_attention(q, k, v, **kw)
-        torch.cuda.synchronize()
-    finally:
-        fa._lib = good_lib
     tol = kernel_tol("bfloat16", plain)
-    err = (out.float() - plain.float()).abs().max().item()
-    bad, bad_fixed = n_outside(out, plain, tol), n_outside(out, plain, dict(atol=2e-2, rtol=2e-2))
-    log("planted", json.dumps(dict(
-        fault="KV loop stops one tile early", case=f"bfloat16 B{B} S=T={S} H{H} Kv{Kv} hd{hd} window4096 cap50",
-        max_abs_err=err, tol=tol, outside_tol=bad, outside_fixed_tol=bad_fixed, elements=out.numel(),
-        card=card)))
-    if not bad:
-        raise AssertionError("planted: the bf16 gate passed a kernel that skips a live KV tile")
+    checks = (("flash_skip_last_tile", "the KV loop stops one tile early"),
+              ("flash_diagonal_as_interior", "diagonal tiles are taken as interior: their causal mask is skipped"))
+    for name, fault in checks:
+        lib = fa._bind(ctypes.CDLL(str(planted[name])))
+        good_lib, fa._lib = fa._lib, lambda: lib
+        try:
+            out = fa.flash_attention(q, k, v, **kw)
+            torch.cuda.synchronize()
+        finally:
+            fa._lib = good_lib
+        err = (out.float() - plain.float()).abs().max().item()
+        bad, bad_fixed = n_outside(out, plain, tol), n_outside(out, plain, dict(atol=2e-2, rtol=2e-2))
+        log("planted", json.dumps(dict(
+            fault=f"flash attention: {fault}", case=f"bfloat16 B{B} S=T={S} H{H} Kv{Kv} hd{hd} window4096 cap50",
+            max_abs_err=err, tol=tol, outside_tol=bad, outside_fixed_tol=bad_fixed, elements=out.numel(),
+            card=card)))
+        if not bad:
+            raise AssertionError(f"planted {name}: the bf16 gate passed a kernel where {fault}")
 
 
 # ---------------------------------------------------------------------------
@@ -569,11 +604,21 @@ def leaves(tree):
 
 
 def kernel_counters():
+    """Each launch count, by name: (the wrapper that holds it, its attribute)."""
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.mamba_scan import mamba_scan
     from repro_torch.kernels.wkv6 import wkv6
 
-    return {"flash_attention": flash_attention, "wkv6": wkv6, "mamba_scan": mamba_scan}
+    return {"flash_attention": (flash_attention, "launches"),
+            "flash_attention_wgmma": (flash_attention, "launches_wgmma"),
+            "flash_attention_scalar": (flash_attention, "launches_scalar"),
+            "wkv6": (wkv6, "launches"), "mamba_scan": (mamba_scan, "launches")}
+
+
+def launch_counts(n_flash: int = 0, n_wkv6: int = 0, n_scan: int = 0) -> dict:
+    """A pass's exact launch counts: every flash launch of the bf16 serving paths on the tensor-core kernel."""
+    return {"flash_attention": n_flash, "flash_attention_wgmma": n_flash, "flash_attention_scalar": 0,
+            "wkv6": n_wkv6, "mamba_scan": n_scan}
 
 
 def serve(torch, model, params, card, *, prompts, max_len, slots, max_new, phase, per_pass):
@@ -587,9 +632,9 @@ def serve(torch, model, params, card, *, prompts, max_len, slots, max_new, phase
 
     def counted(kind, fn):
         def call(*args, **kw):
-            before = {k: c.launches for k, c in counters.items()}
+            before = {k: getattr(*c) for k, c in counters.items()}
             out = fn(*args, **kw)
-            passes.append((kind, {k: c.launches - before[k] for k, c in counters.items()}))
+            passes.append((kind, {k: getattr(*c) - before[k] for k, c in counters.items()}))
             return out
         return call
 
@@ -600,10 +645,10 @@ def serve(torch, model, params, card, *, prompts, max_len, slots, max_new, phase
                       device="cuda")
     reqs = [eng.submit(p, max_new) for p in prompts]
     torch.cuda.reset_peak_memory_stats()
-    for c in counters.values():
-        c.launches = 0                    # count only this run of the main path
+    for obj, attr in counters.values():
+        setattr(obj, attr, 0)             # count only this run of the main path
     stats = eng.run_until_drained(reqs)
-    launches = {k: c.launches for k, c in counters.items()}
+    launches = {k: getattr(*c) for k, c in counters.items()}
     vocab = model.cfg.vocab_size
     if not all(r.done for r in reqs):
         raise AssertionError(f"{phase}: requests left pending")
@@ -646,7 +691,7 @@ def rwkv6_phases(torch, card, rng):
     from repro_torch.models import Model
 
     cfg = get_config("rwkv6-7b")
-    per_pass = {kind: {"flash_attention": 0, "wkv6": cfg.n_layers, "mamba_scan": 0} for kind in ("prefill", "decode")}
+    per_pass = {kind: launch_counts(n_wkv6=cfg.n_layers) for kind in ("prefill", "decode")}
     model = Model(cfg, device="cuda")
     params = model.init(torch.Generator(device="cuda").manual_seed(0))
     log("rwkv6", f"{cfg.name}: {model.count_params(params)} parameters, f32 master weights, "
@@ -687,8 +732,7 @@ def jamba_phases(torch, card, rng):
     cfg = full.replace(n_layers=16, param_dtype="bfloat16")
     n_mamba = cfg.n_units * sum(s.mixer == "mamba" for s in cfg.pattern)
     n_attn = cfg.n_units * sum(s.mixer == "attn" for s in cfg.pattern)
-    per_pass = {"prefill": {"flash_attention": n_attn, "wkv6": 0, "mamba_scan": n_mamba},
-                "decode": {"flash_attention": 0, "wkv6": 0, "mamba_scan": 0}}
+    per_pass = {"prefill": launch_counts(n_flash=n_attn, n_scan=n_mamba), "decode": launch_counts()}
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     model = Model(cfg, device="cuda")
@@ -766,8 +810,7 @@ def main() -> int:
 
     # 4. serve at full width
     cfg = get_config("gemma2-2b")
-    per_pass = {"prefill": {"flash_attention": cfg.n_layers, "wkv6": 0, "mamba_scan": 0},
-                "decode": {"flash_attention": 0, "wkv6": 0, "mamba_scan": 0}}
+    per_pass = {"prefill": launch_counts(n_flash=cfg.n_layers), "decode": launch_counts()}
     model = Model(cfg, device="cuda")
     params = model.init(torch.Generator(device="cuda").manual_seed(0))
     log("serve", f"{cfg.name}: {model.count_params(params)} parameters, f32 master weights, "
@@ -809,6 +852,7 @@ def main() -> int:
 
     main_row = next(r for r in rows if r["case"].startswith("gemma2-serve-long bfloat16")
                     and r["window"] == 4096)
+    jamba_row = next(r for r in rows if r["case"].startswith("jamba-serve-long bfloat16"))
     wkv_row = next(r for r in wkv_rows if r["case"] == "rwkv6 bfloat16 B1 S4096 H64 C64 s0 zero")
     scan_row = next(r for r in scan_rows if r["case"] == "jamba float32 B1 S4096 di8192 ds16 h0 zero")
     kernels = [dict(
@@ -817,8 +861,14 @@ def main() -> int:
         max_abs_err=main_row["max_abs_err"], ms=main_row["kernel_ms"], plain_ms=main_row["plain_ms"],
         bound_ms=main_row["bound_ms"], bound_by=main_row["bound_by"], library_ms=main_row["library_ms"],
         tol=main_row["tol"], shape=main_row["case"], library="sdpa, same mask, softcap 0",
+        variant=main_row["variant"], tflops=main_row["tflops"],
+        launches_wgmma=stats["kernel_launches"]["flash_attention_wgmma"],
         launches_long_prompt=long_stats["kernel_launches"]["flash_attention"],
-        launches_jamba=jamba_stats["kernel_launches"]["flash_attention"], card=card,
+        launches_jamba=jamba_stats["kernel_launches"]["flash_attention"],
+        jamba_shape=jamba_row["case"], jamba_ms=jamba_row["kernel_ms"], jamba_library_ms=jamba_row["library_ms"],
+        jamba_library_causal_ms=jamba_row["library_causal_ms"], jamba_plain_ms=jamba_row["plain_ms"],
+        jamba_bound_ms=jamba_row["bound_ms"], jamba_tflops=jamba_row["tflops"],
+        jamba_max_abs_err=jamba_row["max_abs_err"], card=card,
     ), dict(
         name="wkv6", route="cuda", source="src/repro_torch/kernels/csrc/wkv6.cu",
         replaces="src/repro/kernels/rwkv6_scan.py:96", launches=rwkv_stats["kernel_launches"]["wkv6"],
