@@ -16,7 +16,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
               bound times; flash rows also give the kernel variant that the
               launch counters show ran (bf16 must run the tensor-core kernel, f32
               the scalar one), TFLOP/s of the bound's work, and for a plain causal
-              mask SDPA with is_causal=True;
+              mask SDPA with is_causal=True; WKV-6 and the selective scan at the
+              scan tolerance, their tiles' tails included (S = 4095, the smoke
+              C = 16, a ragged di of 200 and 202);
    planted  — copies of the kernels with a fault built in must fail the same gates:
               flash attention that (a) skips the last live KV tile of every block or
               (b) treats the diagonal tiles as interior and skips their causal mask,
@@ -242,44 +244,51 @@ def run_kernel_cases(torch, card):
     return rows
 
 
-# planted faults, by the copy's name: (kernel source, text of the source, its faulty replacement)
+# planted faults, by the copy's name: (kernel source, text of the source, its faulty replacement);
+# planted_sources also takes (kernel source, [(text, replacement), ...]) for several edits
 PLANTED = {
     "flash_skip_last_tile": ("flash_attention", "const int kt_end = k_hi > k_lo ? (k_hi - 1) / BK + 1 : kt_begin;",
                              "const int kt_end = k_hi > k_lo ? (k_hi - 1) / BK : kt_begin;"),
     "flash_diagonal_as_interior": ("flash_attention", "(!causal || k0 + BK - 1 <= wq_lo)", "true"),
-    "wkv6_no_bonus": ("wkv6", "fmaf(uu[m], kv, st[m])", "st[m]"),
+    "wkv6_no_bonus": ("wkv6", "p[0] + bonus[t] * vj", "p[0]"),
     "wkv6_ignores_s0": ("wkv6", "const bool has_s0 = s0 != nullptr;", "const bool has_s0 = false;"),
-    "wkv6_reset_halfway": ("wkv6", "    for (int tt = 0; tt < n; ++tt) {\n",
-                           "    for (int tt = 0; tt < n; ++tt) {\n"
+    "wkv6_reset_halfway": ("wkv6", "    for (int tt = 0; tt < n; tt += 2 * TK) {\n",
+                           "    for (int tt = 0; tt < n; tt += 2 * TK) {\n"
                            "      if (t0 + tt == seq / 2) {\n"
                            "#pragma unroll\n"
-                           "        for (int m = 0; m < R; ++m) st[m] = 0.f;\n"
+                           "        for (int a = 0; a < RI; ++a)\n"
+                           "#pragma unroll\n"
+                           "          for (int c = 0; c < JC; ++c) st[a][c] = 0.f;\n"
                            "      }\n"),
-    "mamba_no_drive": ("mamba_scan", "h[s] = fmaf(decay, h[s], du * bs[tt][lane * NS + s]);",
-                       "h[s] = decay * h[s];"),
+    "mamba_no_drive": ("mamba_scan", "h[c][s] = fmaf(decay, h[c][s], du * bq[s]);", "h[c][s] = decay * h[c][s];"),
     "mamba_ignores_h0": ("mamba_scan", "const bool has_h0 = h0 != nullptr;", "const bool has_h0 = false;"),
-    "mamba_reset_halfway": ("mamba_scan", "    for (int tt = 0; tt < n; ++tt) {\n",
-                            "    for (int tt = 0; tt < n; ++tt) {\n"
+    "mamba_reset_halfway": ("mamba_scan", "    for (int tt = 0; tt < n; tt += 2 * U) {\n",
+                            "    for (int tt = 0; tt < n; tt += 2 * U) {\n"
                             "      if (t0 + tt == seq / 2) {\n"
                             "#pragma unroll\n"
-                            "        for (int s = 0; s < NS; ++s) h[s] = 0.f;\n"
+                            "        for (int c = 0; c < DC; ++c)\n"
+                            "#pragma unroll\n"
+                            "          for (int s = 0; s < NS; ++s) h[c][s] = 0.f;\n"
                             "      }\n"),
 }
 
 
 def planted_sources(table=PLANTED, folder="planted"):
-    """Write each edited copy of ``table`` under build/<folder>/ (never into the source
-    tree); returns {name: (src, lib)}."""
+    """Write each edited copy of ``table`` under build/repro_torch/<folder>/ (never into
+    the source tree); each text must appear in the source exactly once, before its edit.
+    Returns {name: (src, lib)}."""
     from repro_torch.kernels import _build
 
     out = {}
-    for name, (kernel, good, bad) in table.items():
+    for name, (kernel, *edit) in table.items():
         src = (_build.CSRC / f"{kernel}.cu").read_text()
-        if src.count(good) != 1:
-            raise AssertionError(f"{folder} {name}: {good!r} is not in {kernel}.cu exactly once")
+        for good, bad in (edit[0] if len(edit) == 1 else [edit]):
+            if src.count(good) != 1:
+                raise AssertionError(f"{folder} {name}: {good!r} is not in {kernel}.cu exactly once")
+            src = src.replace(good, bad)
         path = _build.BUILD_DIR / folder / f"{name}.cu"
         path.parent.mkdir(parents=True, exist_ok=True)
-        path.write_text(src.replace(good, bad))
+        path.write_text(src)
         out[name] = (path, path.with_suffix(".so"))
     return out
 
@@ -346,7 +355,11 @@ WKV_GEOMETRY = {"smoke": (4, 16, 16), "rwkv6": (64, 64, 256)}  # H, C, the plain
 
 def wkv6_cases():
     """(label, dtype, B, S, H, C, chunk, s0): the reference's smoke case, the full
-    width at S in {1, 23, 256, 4096}, and decode at 4 slots; bf16 and f32 each."""
+    width at S in {1, 23, 256, 4096}, and decode at 4 slots; bf16 and f32 each.
+    Then the tiling's tails, appended so that the earlier cases keep their seeds:
+    S = 4095 (a last tile of 31 tokens, whose last step holds 15) at the full width and
+    at the smoke C = 16; and a 7-token call at 2 slots, which takes the short geometry of
+    calls of at most 8 tokens in two groups of 4."""
     cases = []
     for dtype in ("bfloat16", "float32"):
         for s0 in ("zero", "carried"):
@@ -354,6 +367,12 @@ def wkv6_cases():
             for S in (1, 23, 256, 4096):
                 cases.append(("rwkv6", dtype, 1, S, *WKV_GEOMETRY["rwkv6"], s0))
         cases.append(("rwkv6-decode", dtype, 4, 1, *WKV_GEOMETRY["rwkv6"], "carried"))
+    for dtype in ("bfloat16", "float32"):
+        for s0 in ("zero", "carried"):
+            cases.append(("rwkv6", dtype, 1, 4095, *WKV_GEOMETRY["rwkv6"], s0))
+            cases.append(("smoke", dtype, 1, 4095, *WKV_GEOMETRY["smoke"], s0))
+    for dtype in ("bfloat16", "float32"):
+        cases.append(("rwkv6-short", dtype, 2, 7, *WKV_GEOMETRY["rwkv6"], "carried"))
     return cases
 
 
@@ -478,12 +497,22 @@ def mamba_cases():
     """(label, B, S, di, ds, chunk, h0): the smoke width, the full width at S in
     {1, 23, 300, 4096} (300 ends the plain version's 256-chunks in a ragged
     tail) with zero and carried h0, and 4 slots of one token; all f32, as the
-    model passes them."""
+    model passes them.  Then the tiling's tails, appended so that the earlier
+    cases keep their seeds: S = 4095 (a last tile of 31 tokens, whose last step
+    holds 15) at the full width, and a ragged di at jamba's ds: 200 (the last block of
+    64 channels holds 8) and 202 (rows that are not whole 16-byte chunks); last, a
+    7-token call at di 202, which takes the short geometry of calls of at most 8 tokens."""
     cases = [("smoke", 2, 64, *SCAN_GEOMETRY["smoke"], "zero")]
     for h0 in ("zero", "carried"):
         for S in (1, 23, 300, 4096):
             cases.append(("jamba", 1, S, *SCAN_GEOMETRY["jamba"], h0))
     cases.append(("jamba-B4", 4, 1, *SCAN_GEOMETRY["jamba"], "carried"))
+    di, ds, chunk = SCAN_GEOMETRY["jamba"]
+    for h0 in ("zero", "carried"):
+        cases.append(("jamba", 1, 4095, di, ds, chunk, h0))
+        for ragged in (200, 202):
+            cases.append(("jamba-ragged-di", 2, 4095, ragged, ds, chunk, h0))
+    cases.append(("jamba-short-ragged-di", 2, 7, 202, ds, chunk, "carried"))
     return cases
 
 

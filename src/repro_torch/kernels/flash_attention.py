@@ -37,6 +37,8 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from ._operand import kernel_operand
+
 __all__ = ["flash_attention", "flash_attention_plain", "kernel_geometry", "tensor_map_geometry", "KernelGeometry"]
 
 _BIG_NEG = -1e30
@@ -217,12 +219,6 @@ def _lib() -> ctypes.CDLL:
     return _bind(load_library("flash_attention"))
 
 
-def _kernel_operand(x: torch.Tensor) -> torch.Tensor:
-    """Contiguous and 16-byte aligned, as the kernel's vector loads need."""
-    x = x.contiguous()
-    return x if x.data_ptr() % 16 == 0 else x.clone()
-
-
 def _launch(q, k, v, *, causal, window, logit_softcap, q_offset, scale) -> torch.Tensor:
     B, S, H, hd = q.shape
     T, Kv = k.shape[1], k.shape[2]
@@ -239,7 +235,7 @@ def _launch(q, k, v, *, causal, window, logit_softcap, q_offset, scale) -> torch
     geom = kernel_geometry(q.dtype, hd)
     if geom.hd != hd:  # zero columns: no change to Q·Kᵀ, and output columns that are cut off again
         q, k, v = (F.pad(x, (0, geom.hd - hd)) for x in (q, k, v))
-    q, k, v = (_kernel_operand(x) for x in (q, k, v))
+    q, k, v = (kernel_operand(x) for x in (q, k, v))
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out[..., :hd]

@@ -34,6 +34,8 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from ._operand import kernel_operand
+
 __all__ = ["mamba_scan", "mamba_scan_plain"]
 
 _STATE_DIMS = (4, 8, 16, 32)  # the kernel's instantiations
@@ -137,6 +139,8 @@ def _launch(u, delta, A, Bmat, Cmat, h0) -> Tuple[torch.Tensor, torch.Tensor]:
         raise ValueError("kernel takes contiguous u, delta, A, B, C and h0")
     if ds not in _STATE_DIMS or B > 65535:
         raise ValueError(f"kernel takes ds in {_STATE_DIMS} and B <= 65535; got B={B} ds={ds}")
+    u, delta, A, Bmat, Cmat = (kernel_operand(x) for x in (u, delta, A, Bmat, Cmat))
+    h0 = None if h0 is None else kernel_operand(h0)
     y = torch.empty((B, S, di), dtype=torch.float32, device=u.device)
     h_fin = torch.empty((B, di, ds), dtype=torch.float32, device=u.device)
     lib = _lib()

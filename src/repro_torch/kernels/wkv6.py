@@ -31,6 +31,8 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from ._operand import kernel_operand
+
 __all__ = ["wkv6", "wkv6_plain"]
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -132,8 +134,8 @@ def _launch(r, k, v, w, u, s0) -> Tuple[torch.Tensor, torch.Tensor]:
         raise TypeError(f"kernel takes float32 w, u and s0; got {[x.dtype for x in operands[3:]]}")
     if C not in _HEAD_DIMS or B > 65535 or H > 65535:
         raise ValueError(f"kernel takes C in {_HEAD_DIMS} and B, H <= 65535; got B={B} H={H} C={C}")
-    r, k, v, w, u = (x.contiguous() for x in (r, k, v, w, u))
-    s0 = None if s0 is None else s0.contiguous()
+    r, k, v, w, u = (kernel_operand(x) for x in (r, k, v, w, u))
+    s0 = None if s0 is None else kernel_operand(s0)
     out = torch.empty((B, S, H, C), dtype=torch.float32, device=r.device)
     s_fin = torch.empty((B, H, C, C), dtype=torch.float32, device=r.device)
     lib = _lib()

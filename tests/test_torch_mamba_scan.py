@@ -33,7 +33,20 @@ CASES = {
     "ragged-20": (2, 20, 32, 8, 16),
     "decode-1": (4, 1, 32, 8, 16),
     "chunk-256": (1, 40, 32, 16, 256),
-    "ragged-di-40": (2, 33, 40, 16, 16),  # the kernel's last block of 32 channels holds 8
+    "ragged-di-40": (2, 33, 40, 16, 16),  # the kernel's one block of 64 channels holds 40
+}
+# card only (the plain version at these sizes is slow on a CPU): jamba's full width at
+# its long prompt, a ragged last tile and step (4095), decode at 4 slots, a 7-token call
+# at a ragged di (the short geometry of calls of at most 8 tokens), and a ragged di
+# (200: the last block of 64 channels holds 8; 202: rows that are not whole 16-byte
+# chunks); held at chip_smoke.py's scan gate, atol 1e-4 x rms(plain) with rtol 1e-4
+GPU_CASES = {
+    "jamba-4096": (1, 4096, 8192, 16, 256),
+    "jamba-ragged-4095": (1, 4095, 8192, 16, 256),
+    "jamba-decode-B4": (4, 1, 8192, 16, 256),
+    "ragged-di-200": (2, 300, 200, 16, 256),
+    "ragged-di-202": (2, 300, 202, 16, 256),
+    "short-7-di-202": (2, 7, 202, 16, 256),
 }
 PALLAS_BLOCK_D = {"ref-ds8": 16, "ref-ds16": 64, "ref-ds4": 16}  # tests/test_kernels.py's block_d
 
@@ -160,11 +173,11 @@ def test_kernel_launch_refuses_what_it_does_not_take():
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("with_h0", [False, True], ids=["h0-absent", "h0-present"])
-@pytest.mark.parametrize("name", sorted(CASES))
+@pytest.mark.parametrize("name", sorted(CASES) + sorted(GPU_CASES))
 def test_cuda_kernel_matches_plain(name, with_h0):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
-    B, S, di, ds, chunk = CASES[name]
+    B, S, di, ds, chunk = CASES[name] if name in CASES else GPU_CASES[name]
     u, delta, A, Bm, Cm, h0 = (x.cuda() for x in _torch(*_arrays(B, S, di, ds, seed=5)))
     h0 = h0 if with_h0 else None
     before = mamba_scan.launches
@@ -173,8 +186,9 @@ def test_cuda_kernel_matches_plain(name, with_h0):
     assert mamba_scan.launches == before + 1
     assert y.dtype == torch.float32 and h.dtype == torch.float32
     want_y, want_h = mamba_scan_plain(u, delta, A, Bm, Cm, chunk=chunk, h0=h0)
-    torch.testing.assert_close(y, want_y, **TOL)
-    torch.testing.assert_close(h, want_h, **TOL)
+    for got, want in ((y, want_y), (h, want_h)):
+        tol = TOL if name in CASES else dict(atol=1e-4 * want.pow(2).mean().sqrt().item(), rtol=1e-4)
+        torch.testing.assert_close(got, want, **tol)
 
 
 def test_plain_returns_contiguous_results():

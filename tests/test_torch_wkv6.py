@@ -17,6 +17,7 @@ import torch
 from repro.kernels.ref import wkv6_ref as jax_wkv6_ref
 from repro.kernels.rwkv6_scan import wkv6_pallas
 from repro.models.rwkv6 import wkv_chunked
+from repro_torch.kernels._operand import kernel_operand
 from repro_torch.kernels.ref import wkv6_ref
 from repro_torch.kernels.wkv6 import wkv6, wkv6_plain
 
@@ -31,6 +32,17 @@ CASES = {
     # a ragged tail (padded with w = 1, k = 0) and a single decode token
     "ragged-20": (2, 20, 2, 16, 16),
     "decode-1": (4, 1, 2, 16, 16),
+}
+# card only (the plain version at these sizes is slow on a CPU): the full width's long
+# prompt, a ragged last tile and step (4095), decode at 4 slots, a 7-token call (the short
+# geometry of calls of at most 8 tokens, in two groups), and the smoke C = 16's ragged
+# tail; held at chip_smoke.py's scan gate, atol 1e-4 x rms(plain) with rtol 1e-4
+GPU_CASES = {
+    "rwkv6-4096": (1, 4096, 64, 64, 256),
+    "rwkv6-ragged-4095": (1, 4095, 64, 64, 256),
+    "rwkv6-decode-B4": (4, 1, 64, 64, 256),
+    "rwkv6-short-7": (2, 7, 64, 64, 256),
+    "smoke-ragged-4095": (1, 4095, 4, 16, 16),
 }
 
 
@@ -124,6 +136,22 @@ def test_wrapper_on_cpu_runs_plain_and_counts_nothing():
     torch.testing.assert_close(state, want_state, rtol=0, atol=0)
 
 
+def test_kernel_operand_is_contiguous_and_16_byte_aligned():
+    """The kernels copy 16-byte chunks: a contiguous view that starts 4 bytes into its
+    storage is copied to an aligned tensor with the same values; an aligned one is kept
+    (the three wrappers pass every operand through this helper)."""
+    flat = torch.arange(1 + 2 * 8 * 2 * 8, dtype=torch.float32)
+    view = flat[1:].view(2, 8, 2, 8)
+    assert view.is_contiguous() and view.data_ptr() % 16
+    fixed = kernel_operand(view)
+    assert fixed.data_ptr() % 16 == 0 and fixed.is_contiguous()
+    torch.testing.assert_close(fixed, view, rtol=0, atol=0)
+    aligned = flat[:-1].view(2, 8, 2, 8)
+    assert kernel_operand(aligned) is aligned
+    strided = aligned.transpose(1, 2)
+    assert kernel_operand(strided).is_contiguous()
+
+
 def test_wrapper_rejects_mismatched_shapes():
     r, k, v, w, u, s0 = _torch(*_arrays(2, 8, 2, 8))
     with pytest.raises(ValueError, match="u must be"):
@@ -137,11 +165,11 @@ def test_wrapper_rejects_mismatched_shapes():
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("with_s0", [False, True], ids=["s0-absent", "s0-present"])
-@pytest.mark.parametrize("name", sorted(CASES))
+@pytest.mark.parametrize("name", sorted(CASES) + sorted(GPU_CASES))
 def test_cuda_kernel_matches_plain(name, with_s0, dtype):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
-    B, S, H, C, chunk = CASES[name]
+    B, S, H, C, chunk = CASES[name] if name in CASES else GPU_CASES[name]
     r, k, v, w, u, s0 = (x.cuda() for x in _torch(*_arrays(B, S, H, C, seed=5)))
     r, k, v = (x.to(getattr(torch, dtype)) for x in (r, k, v))
     s0 = s0 if with_s0 else None
@@ -151,5 +179,6 @@ def test_cuda_kernel_matches_plain(name, with_s0, dtype):
     assert wkv6.launches == before + 1
     assert out.dtype == torch.float32 and state.dtype == torch.float32
     want_out, want_state = wkv6_plain(r, k, v, w, u, chunk=chunk, s0=s0)
-    torch.testing.assert_close(out, want_out, **TOL)
-    torch.testing.assert_close(state, want_state, **TOL)
+    for got, want in ((out, want_out), (state, want_state)):
+        tol = TOL if name in CASES else dict(atol=1e-4 * want.pow(2).mean().sqrt().item(), rtol=1e-4)
+        torch.testing.assert_close(got, want, **tol)
