@@ -19,12 +19,23 @@ Phases, each of which raises on failure (the script then exits non-zero):
               mask SDPA with is_causal=True; WKV-6 and the selective scan at the
               scan tolerance, their tiles' tails included (S = 4095, the smoke
               C = 16, a ragged di of 200 and 202);
+   backward — the flash-attention backward's three kernels (D = rowsum(do o), dk / dv, dq)
+              against flash_attention_bwd_plain, with the forward's log-sum-exp against the plain
+              one: the smoke shape, gemma2's training shape (bf16 B4 S=T=2048 H8 Kv4 hd256,
+              softcap 50) with window 4096 and 0, B1 S=T=4608 where the window binds, B2 with a
+              ragged S=300, and f32 at S=320; gates per gradient, atol 2e-2 x rms(plain) with rtol
+              2e-2 in bf16 and 2e-5 scaled the same way in f32; CUDA-event times of each kernel and
+              of the whole backward against its bound and the plain version, which the backward
+              must beat at gemma2's training shape;
    planted  — copies of the kernels with a fault built in must fail the same gates:
               flash attention that (a) skips the last live KV tile of every block or
               (b) treats the diagonal tiles as interior and skips their causal mask,
               WKV-6 that (a) drops the bonus u, (b) ignores s0 or (c) resets its
               state halfway through the sequence, and the selective scan that
-              (a) drops the drive, (b) ignores h0 or (c) resets its state halfway;
+              (a) drops the drive, (b) ignores h0 or (c) resets its state halfway, and the flash
+              backward that (a) drops the softcap's derivative, (b) takes dk and dv from the first
+              query head of each group only or (c) leaves D out of ds (q scaled by 4, so that the
+              softcap's derivative matters);
 4. serve    — gemma2-2b at full width (26 layers, bf16 compute, f32 weights from a
               seeded torch.Generator) through ServeEngine: 8 prompts of 4-24 tokens,
               4 slots, 16 new tokens, greedy; flash attention must launch exactly 26
@@ -51,7 +62,21 @@ Phases, each of which raises on failure (the script then exits non-zero):
               4096-token prompt (MoE capacity 640); jamba-check, card against CPU at
               2e-3 on a full-width 2-layer cut that keeps pattern positions 3 and 4
               (mamba + moe, attention + dense) in f32 over a 300-token prompt plus 2
-              decode steps, and on the smoke model over 20 steps.
+              decode steps, and on the smoke model over 20 steps;
+9. train    — gemma2-2b training at full width and depth (26 layers, f32 master weights, bf16
+              compute, remat="unit") through the training launcher's Trainer: 8 steps at global
+              batch 4 x seq 2048 of SyntheticLM(period=16, vocab_eff=256); every loss and grad
+              norm finite, the last loss below the first, and per step (one microbatch) flash
+              attention's forward launched exactly 52 times (26 + 26 recomputed) and each
+              backward kernel exactly 26 times; step ms, tok/s and the peak device memory;
+10. train-check — card against CPU in f32 on a full-width cut to one unit (2 layers, local and
+              global), B1 S320, loss chunk 64: the loss within rtol 1e-5 and every gradient leaf
+              within ||card - cpu|| / ||cpu|| <= 1e-4; then 3 Trainer steps of the smoke model on
+              both, losses within rtol 1e-4;
+11. library — SDPA's backward through autograd at each backward case (softcap 0, the same
+              mask; is_causal for a plain causal one), the backward's library yardstick.  It runs
+              last: autograd leaves a cuBLAS workspace on its own thread, which would raise every
+              later phase's peak.
 
 It ends with the kernels' JSON line, the nvidia-smi line, and the line
 ``{"ok": true, "device": {...}}``.  With no CUDA device, or without the
@@ -77,6 +102,9 @@ SCAN_REL = 1e-4                          # the reference's scan tolerance, taken
 LOGIT_TOL = dict(atol=2e-3, rtol=2e-3)   # the reference's prefill/decode tolerance
 HBM_BYTES_PER_S = 3.35e12                # H100 SXM data sheet
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}  # bf16 tensor cores; f32 outside them
+GRAD_REL = {"bfloat16": 2e-2, "float32": 2e-5}  # the backward's gates, both taken relative to the rms of plain
+LOSS_RTOL = 1e-5                         # the reference's loss tolerance (tests/test_train.py)
+GRAD_LEAF_REL = 1e-4                     # card vs CPU, per gradient leaf: ||card - cpu|| / ||cpu||
 
 
 def log(phase: str, msg: str) -> None:
@@ -176,12 +204,17 @@ def attention_cases():
     return cases
 
 
-def attention_bound(torch, dtype, B, S, T, H, Kv, hd, window, q_offset, causal=True):
-    """Least time for the work this mask needs: max(bytes / HBM rate, FLOP / peak), and the FLOP."""
+def live_pairs(torch, B, S, T, H, window, q_offset=0, causal=True):
+    """(query, key) pairs the mask keeps, over all batch rows and heads."""
     q_pos = q_offset + torch.arange(S, dtype=torch.float64)
     lo = (q_pos - window + 1).clamp(min=0) if window else torch.zeros_like(q_pos)
     hi = q_pos.clamp(max=T - 1) if causal else torch.full_like(q_pos, T - 1)
-    pairs = float((hi - lo + 1).clamp(min=0).sum()) * B * H
+    return float((hi - lo + 1).clamp(min=0).sum()) * B * H
+
+
+def attention_bound(torch, dtype, B, S, T, H, Kv, hd, window, q_offset, causal=True):
+    """Least time for the work this mask needs: max(bytes / HBM rate, FLOP / peak), and the FLOP."""
+    pairs = live_pairs(torch, B, S, T, H, window, q_offset, causal)
     flops = 4.0 * hd * pairs                              # QK^T and PV, 2 FLOP per MAC
     elt = 2 if dtype == "bfloat16" else 4
     nbytes = elt * (2 * B * S * H * hd + 2 * B * T * Kv * hd)  # q, out, k, v once each
@@ -270,6 +303,10 @@ PLANTED = {
                             "#pragma unroll\n"
                             "          for (int s = 0; s < NS; ++s) h[c][s] = 0.f;\n"
                             "      }\n"),
+    "flash_bwd_no_softcap_derivative": ("flash_attention_bwd", "dcap = 1.f - t * t;", "dcap = 1.f;"),
+    "flash_bwd_first_head_only": ("flash_attention_bwd", "const int n_items = group * nq;",
+                                  "const int n_items = nq;"),
+    "flash_bwd_no_D": ("flash_attention_bwd", "ds = p * (dp - d_i) * dcap;", "ds = p * dp * dcap;"),
 }
 
 
@@ -344,6 +381,153 @@ def planted_fault_check(torch, card, planted):
             card=card)))
         if not bad:
             raise AssertionError(f"planted {name}: the bf16 gate passed a kernel where {fault}")
+
+
+# ---------------------------------------------------------------------------
+# phase 3, flash attention backward: kernels vs plain, and their planted faults
+# ---------------------------------------------------------------------------
+
+
+def backward_cases():
+    """(label, dtype, B, S, H, Kv, hd, window, cap): the smoke shape; gemma2's training shape
+    (B4 S=T=2048) with its local window (4096, wider than the sequence) and with none; one
+    4608-token sequence, where the window binds; two rows of a ragged 300; f32 at 320."""
+    return [("smoke", "bfloat16", 2, 64, 4, 2, 16, 0, 0.0),
+            ("smoke", "float32", 2, 64, 4, 2, 16, 0, 0.0),
+            ("gemma2-train", "bfloat16", 4, 2048, 8, 4, 256, 4096, 50.0),
+            ("gemma2-train", "bfloat16", 4, 2048, 8, 4, 256, 0, 50.0),
+            ("gemma2-window-binds", "bfloat16", 1, 4608, 8, 4, 256, 4096, 50.0),
+            ("gemma2-B2-ragged", "bfloat16", 2, 300, 8, 4, 256, 0, 50.0),
+            ("gemma2-f32", "float32", 1, 320, 8, 4, 256, 4096, 50.0)]
+
+
+def backward_inputs(torch, dtype, B, S, H, Kv, hd, q_scale, seed):
+    """q (times q_scale), k, v and the output's gradient do, N(0, 1) in dtype."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    dt = getattr(torch, dtype)
+    q = (q_scale * torch.randn((B, S, H, hd), generator=gen, device="cuda")).to(dt)
+    k, v = (torch.randn((B, S, Kv, hd), generator=gen, device="cuda").to(dt) for _ in range(2))
+    do = torch.randn((B, S, H, hd), generator=gen, device="cuda").to(dt)
+    return q, k, v, do
+
+
+def grad_tol(dtype: str, plain) -> dict:
+    """The backward's gate for one gradient (or the LSE): atol GRAD_REL x rms(plain), rtol GRAD_REL."""
+    rms = plain.float().pow(2).mean().sqrt().item()
+    return dict(atol=GRAD_REL[dtype] * rms, rtol=GRAD_REL[dtype])
+
+
+def backward_bounds(torch, dtype, B, S, H, Kv, hd, window):
+    """{kernel: (least ms, "bytes" or "operations")} for each backward kernel and the whole.
+
+    FLOP per live pair, 2 hd per product: the whole needs s, dp, dv, dk and dq (five);
+    dk / dv alone s, dp, dv, dk (four), dq alone s, dp, dq (three).  Bytes, each once: the
+    whole reads q, k, v, o, do and the f32 lse and writes dq, dk, dv; the row-dot kernel reads
+    o and do and writes D; dk / dv read q, k, v, do, lse, D and write dk, dv; dq reads the
+    same and writes dq.
+    """
+    pairs = live_pairs(torch, B, S, S, H, window)
+    elt = 2 if dtype == "bfloat16" else 4
+    nq, nkv, nrow = elt * B * S * H * hd, elt * B * S * Kv * hd, 4 * B * H * S
+    work = {"rowdot": (2 * nq + nrow, 2.0 * B * S * H * hd),
+            "dkdv": (2 * nq + 4 * nkv + 2 * nrow, 8.0 * hd * pairs),
+            "dq": (3 * nq + 2 * nkv + 2 * nrow, 6.0 * hd * pairs),
+            "backward": (4 * nq + 4 * nkv + nrow, 10.0 * hd * pairs)}
+    out = {}
+    for name, (nbytes, flops) in work.items():
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype]
+        out[name] = (1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
+    return out
+
+
+def bwd_counts():
+    from repro_torch.kernels.flash_attention import flash_attention_bwd
+
+    return {name: getattr(flash_attention_bwd, f"launches_{name}") for name in ("rowdot", "dkdv", "dq")}
+
+
+def run_backward_cases(torch, card):
+    import repro_torch.kernels.flash_attention as fa
+
+    rows = []
+    for seed, (label, dtype, B, S, H, Kv, hd, window, cap) in enumerate(backward_cases(), start=300):
+        q, k, v, do = backward_inputs(torch, dtype, B, S, H, Kv, hd, 1.0, seed)
+        kw = dict(causal=True, window=window, logit_softcap=cap)
+        name = f"{label} {dtype} B{B} S=T={S} H{H} Kv{Kv} hd{hd} window{window} cap{cap}"
+        o, lse = fa.flash_attention_with_lse(q, k, v, **kw)
+        plain_lse = fa.flash_attention_plain(q, k, v, return_lse=True, **kw)[1]
+        before = bwd_counts()
+        grads = fa.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+        torch.cuda.synchronize()
+        moved = {n: c - before[n] for n, c in bwd_counts().items()}
+        if moved != {"rowdot": 1, "dkdv": 1, "dq": 1}:
+            raise AssertionError(f"{name}: backward launches {moved}; expected one of each kernel")
+        plain = fa.flash_attention_bwd_plain(q, k, v, o, lse, do, **kw)
+        errs, tols = {}, {}
+        for gname, got, want in zip(("lse", "dq", "dk", "dv"), (lse, *grads), (plain_lse, *plain)):
+            if got.shape != want.shape or got.dtype != want.dtype:
+                raise AssertionError(f"{name} {gname}: {got.dtype} {tuple(got.shape)}, plain {want.dtype} "
+                                     f"{tuple(want.shape)}")
+            tols[gname] = grad_tol(dtype, want)
+            errs[gname] = check_close(f"{name} {gname}", got, want, tols[gname])
+        launches, _ = fa.backward_launches(q, k, v, o, lse, do, **kw)
+        kernel_ms = {kname: cuda_ms(torch, launch) for kname, launch in launches}
+        backward_ms = cuda_ms(torch, lambda: fa.flash_attention_bwd(q, k, v, o, lse, do, **kw))
+        forward_ms = cuda_ms(torch, lambda: fa.flash_attention_with_lse(q, k, v, **kw))
+        plain_ms = cuda_ms(torch, lambda: fa.flash_attention_bwd_plain(q, k, v, o, lse, do, **kw), max_reps=5)
+        bounds = backward_bounds(torch, dtype, B, S, H, Kv, hd, window)
+        row = dict(case=name, label=label, dtype=dtype, B=B, S=S, H=H, Kv=Kv, hd=hd, window=window, cap=cap,
+                   seed=seed, max_abs_err=errs, tol=tols, kernel_ms=kernel_ms, backward_ms=backward_ms,
+                   forward_with_lse_ms=forward_ms,
+                   plain_ms=plain_ms, plain="flash_attention_bwd_plain (all three gradients)",
+                   bound_ms={n: b[0] for n, b in bounds.items()}, bound_by={n: b[1] for n, b in bounds.items()},
+                   card=card)
+        print(json.dumps(row), flush=True)
+        if label == "gemma2-train" and not backward_ms < plain_ms:
+            raise AssertionError(f"{name}: the backward kernels take {backward_ms:.3f} ms, no faster than "
+                                 f"their plain version's {plain_ms:.3f} ms")
+        rows.append(row)
+    return rows
+
+
+def backward_planted_checks(torch, card, planted):
+    """Each faulty build of the backward must put elements of dq, dk or dv outside the bf16 gate,
+    where the committed build puts none: gemma2's geometry, q scaled by 4 so that 1 - t² is far from 1."""
+    import ctypes
+
+    import repro_torch.kernels.flash_attention as fa
+
+    B, S, H, Kv, hd = 1, 2048, 8, 4, 256
+    kw = dict(causal=True, window=0, logit_softcap=50.0)
+    q, k, v, do = backward_inputs(torch, "bfloat16", B, S, H, Kv, hd, 4.0, seed=400)
+    o, lse = fa.flash_attention_with_lse(q, k, v, **kw)
+    plain = fa.flash_attention_bwd_plain(q, k, v, o, lse, do, **kw)
+    tols = [grad_tol("bfloat16", w) for w in plain]
+
+    def outside(grads):
+        return {g: n_outside(got, want, tol) for g, got, want, tol in zip(("dq", "dk", "dv"), grads, plain, tols)}
+
+    good = outside(fa.flash_attention_bwd(q, k, v, o, lse, do, **kw))
+    if any(good.values()):
+        raise AssertionError(f"planted: the committed backward fails its own gate at q x 4: {good}")
+    case = f"bfloat16 B{B} S=T={S} H{H} Kv{Kv} hd{hd} window0 cap50, q x 4"
+    checks = (("flash_bwd_no_softcap_derivative", "the softcap's derivative 1 - t^2 is dropped"),
+              ("flash_bwd_first_head_only", "dk and dv come from the first query head of each group only"),
+              ("flash_bwd_no_D", "D = rowsum(do o) is left out of ds"))
+    for name, fault in checks:
+        lib = fa._bind_bwd(ctypes.CDLL(str(planted[name])))
+        good_lib, fa._bwd_lib = fa._bwd_lib, lambda: lib
+        try:
+            grads = fa.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+            torch.cuda.synchronize()
+        finally:
+            fa._bwd_lib = good_lib
+        bad = outside(grads)
+        log("planted", json.dumps(dict(fault=f"flash backward: {fault}", case=case, outside_tol=bad,
+                                       committed_outside_tol=good, elements=[g.numel() for g in grads],
+                                       tol=tols, card=card)))
+        if not any(bad.values()):
+            raise AssertionError(f"planted {name}: the backward gate passed a kernel where {fault}")
 
 
 # ---------------------------------------------------------------------------
@@ -634,19 +818,24 @@ def leaves(tree):
 
 def kernel_counters():
     """Each launch count, by name: (the wrapper that holds it, its attribute)."""
-    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_bwd
     from repro_torch.kernels.mamba_scan import mamba_scan
     from repro_torch.kernels.wkv6 import wkv6
 
     return {"flash_attention": (flash_attention, "launches"),
             "flash_attention_wgmma": (flash_attention, "launches_wgmma"),
             "flash_attention_scalar": (flash_attention, "launches_scalar"),
+            "flash_attention_bwd_rowdot": (flash_attention_bwd, "launches_rowdot"),
+            "flash_attention_bwd_dkdv": (flash_attention_bwd, "launches_dkdv"),
+            "flash_attention_bwd_dq": (flash_attention_bwd, "launches_dq"),
             "wkv6": (wkv6, "launches"), "mamba_scan": (mamba_scan, "launches")}
 
 
-def launch_counts(n_flash: int = 0, n_wkv6: int = 0, n_scan: int = 0) -> dict:
-    """A pass's exact launch counts: every flash launch of the bf16 serving paths on the tensor-core kernel."""
+def launch_counts(n_flash: int = 0, n_wkv6: int = 0, n_scan: int = 0, n_bwd: int = 0) -> dict:
+    """A pass's exact launch counts: every flash launch of the bf16 paths on the tensor-core kernel,
+    and n_bwd launches of each backward kernel."""
     return {"flash_attention": n_flash, "flash_attention_wgmma": n_flash, "flash_attention_scalar": 0,
+            "flash_attention_bwd_rowdot": n_bwd, "flash_attention_bwd_dkdv": n_bwd, "flash_attention_bwd_dq": n_bwd,
             "wkv6": n_wkv6, "mamba_scan": n_scan}
 
 
@@ -802,6 +991,156 @@ def jamba_phases(torch, card, rng):
     return stats, long_stats
 
 
+# ---------------------------------------------------------------------------
+# phases 9-11: training, card against CPU, and the backward's library yardstick
+# ---------------------------------------------------------------------------
+
+TRAIN = dict(steps=8, seq_len=2048, global_batch=4, microbatches=1, lr=1e-3, seed=0)
+
+
+def train_phase(torch, card):
+    """gemma2-2b at full width and depth through the launcher's Trainer; exact launches per step."""
+    from repro_torch.launch.train import build_trainer
+
+    counters = kernel_counters()
+    marks = []
+
+    def mark(step):  # the Trainer calls this before each step: the counters then, read after
+        marks.append({k: getattr(*c) for k, c in counters.items()})
+
+    torch.cuda.empty_cache()
+    trainer = build_trainer("gemma2-2b", device="cuda", fault_hook=mark, **TRAIN)
+    cfg = trainer.model.cfg
+    params = trainer.state["params"]
+    dtypes = sorted({str(t.dtype) for t in leaves(params)})
+    if cfg.n_layers != 26 or cfg.remat != "unit" or cfg.dtype != "bfloat16" or dtypes != ["torch.float32"]:
+        raise AssertionError(f"train: {cfg.n_layers} layers, remat {cfg.remat}, compute {cfg.dtype}, params {dtypes}")
+    n_attn = cfg.n_layers
+    per_step = launch_counts(n_flash=2 * n_attn, n_bwd=n_attn)   # forward, recomputed forward, backward
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for obj, attr in counters.values():
+        setattr(obj, attr, 0)             # count only this run of the main path
+    result = trainer.run(TRAIN["steps"])
+    final = {k: getattr(*c) for k, c in counters.items()}
+    peak = torch.cuda.max_memory_allocated()
+    ends = marks[1:] + [final]
+    steps = [{k: end[k] - start[k] for k in final} for start, end in zip(marks, ends)]
+    wrong = [(i, got) for i, got in enumerate(steps) if got != per_step]
+    if len(steps) != TRAIN["steps"] or wrong:
+        raise AssertionError(f"train: kernel launches per step differ from {per_step}: {wrong[:3]}")
+    log_rows = trainer.metrics_log
+    losses = [m["loss"] for m in log_rows]
+    norms = [m["grad_norm"] for m in log_rows]
+    if not all(math.isfinite(x) for x in losses + norms) or not losses[-1] < losses[0]:
+        raise AssertionError(f"train: losses {losses}, grad norms {norms}: not all finite, or not falling")
+    tokens = TRAIN["global_batch"] * TRAIN["seq_len"]
+    step_ms = [1e3 * m["seconds"] for m in log_rows]
+    stats = dict(model=cfg.name, layers=cfg.n_layers, params=sum(t.numel() for t in leaves(params)),
+                 remat=cfg.remat, batch=TRAIN["global_batch"], seq=TRAIN["seq_len"], steps=len(log_rows),
+                 losses=losses, grad_norms=norms, lrs=[m["lr"] for m in log_rows], step_ms=step_ms,
+                 step_ms_after_first=sum(step_ms[1:]) / len(step_ms[1:]),
+                 tok_per_s_after_first=tokens * len(step_ms[1:]) / (sum(step_ms[1:]) / 1e3),
+                 wall_s=result["wall_s"], kernel_launches=final, launches_per_step=per_step,
+                 max_memory_allocated_bytes=peak, card=card)
+    log("train", json.dumps(stats))
+    del trainer, params
+    torch.cuda.empty_cache()
+    return stats
+
+
+def train_check(torch, card):
+    """The card's loss and gradients against the CPU's (plain attention), f32, on the same weights and batch."""
+    from repro_torch import convert
+    from repro_torch.configs import get_config
+    from repro_torch.data import ShardedPipeline, SyntheticLM
+    from repro_torch.launch.train import build_trainer
+    from repro_torch.models import Model
+
+    cut = get_config("gemma2-2b").replace(n_layers=2, dtype="float32")  # one unit: a local and a global layer
+    batch = ShardedPipeline(SyntheticLM(vocab_size=cut.vocab_size, seq_len=320, period=16, vocab_eff=256),
+                            global_batch=1).batch_at(0)
+    params_gpu = Model(cut, device="cuda").init(torch.Generator(device="cuda").manual_seed(3))
+    out = {}
+    for device, params in (("cuda", params_gpu), ("cpu", tree_map(lambda t: t.detach().cpu(), params_gpu))):
+        flat = convert.flatten(params)
+        for leaf in flat.values():
+            leaf.requires_grad_(True)
+        loss, _ = Model(cut, device=device).train_loss(params, batch, loss_chunk=64)
+        grads = torch.autograd.grad(loss, list(flat.values()))
+        out[device] = (float(loss.detach()), {p: g.detach().cpu() for p, g in zip(flat, grads)})
+        del params, flat, grads
+    del params_gpu
+    (loss_g, grads_g), (loss_c, grads_c) = out["cuda"], out["cpu"]
+    rel = {p: ((grads_g[p] - g).norm() / g.norm().clamp_min(1e-30)).item() for p, g in grads_c.items()}
+    worst = max(rel, key=rel.get)
+    log("train-check", json.dumps(dict(
+        cut=f"{cut.name} {cut.n_layers} layers f32, B1 S320, loss chunk 64", loss_card=loss_g, loss_cpu=loss_c,
+        worst_leaf=worst, worst_rel_err=rel[worst], leaves=len(rel), loss_rtol=LOSS_RTOL,
+        grad_leaf_rel=GRAD_LEAF_REL, card=card)))
+    if not abs(loss_g - loss_c) <= LOSS_RTOL * abs(loss_c):
+        raise AssertionError(f"train-check: loss on the card {loss_g} against {loss_c} on the CPU")
+    if not all(math.isfinite(r) and r <= GRAD_LEAF_REL for r in rel.values()):
+        raise AssertionError(f"train-check: gradient leaf {worst} differs by {rel[worst]:.3e} (relative)")
+    del out, grads_g, grads_c
+    torch.cuda.empty_cache()
+
+    # the CPU trainer starts from the card trainer's weights: the two generators draw different numbers
+    trainers = {device: build_trainer("gemma2-2b", smoke=True, steps=3, device=device) for device in ("cuda", "cpu")}
+    with torch.no_grad():
+        for a, b in zip(leaves(trainers["cpu"].state["params"]), leaves(trainers["cuda"].state["params"])):
+            a.copy_(b.cpu())
+    losses = {}
+    for device, trainer in trainers.items():
+        trainer.run(3)
+        losses[device] = [m["loss"] for m in trainer.metrics_log]
+    log("train-check", json.dumps(dict(smoke_losses_card=losses["cuda"], smoke_losses_cpu=losses["cpu"],
+                                       rtol=1e-4, card=card)))
+    np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-4)
+
+
+def library_backward(torch, card, rows):
+    """SDPA's backward through autograd at each backward case: softcap 0, the same mask."""
+    import torch.nn.functional as F
+
+    for row in rows:
+        q, k, v, do = backward_inputs(torch, row["dtype"], row["B"], row["S"], row["H"], row["Kv"], row["hd"], 1.0,
+                                      row["seed"])
+        S, window = row["S"], row["window"]
+        qh, kh, vh = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
+        sdpa = dict(scale=1.0 / math.sqrt(row["hd"]), enable_gqa=True)
+        if window and window < S:  # the window binds: a boolean mask
+            pos = torch.arange(S, device="cuda")
+            mask = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - window)
+            out = F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask, **sdpa)
+            row["library"] = "sdpa backward (autograd), same boolean mask, softcap 0"
+        else:
+            out = F.scaled_dot_product_attention(qh, kh, vh, is_causal=True, **sdpa)
+            row["library"] = "sdpa backward (autograd), is_causal, softcap 0"
+        doh = do.transpose(1, 2)
+        row["library_ms"] = cuda_ms(torch, lambda: torch.autograd.grad(out, (qh, kh, vh), doh, retain_graph=True),
+                                    max_reps=10)
+        log("library", json.dumps(dict(case=row["case"], library=row["library"], library_ms=row["library_ms"],
+                                       backward_ms=row["backward_ms"], card=card)))
+        del qh, kh, vh, out
+
+
+def backward_entries(rows, train_stats, card):
+    """The kernels line's entries of the backward kernels, at gemma2's training shape, window 4096."""
+    row = next(r for r in rows if r["label"] == "gemma2-train" and r["window"] == 4096)
+    max_err = max(row["max_abs_err"][g] for g in ("dq", "dk", "dv"))
+    return [dict(
+        name=f"flash_attention_bwd_{kname}", route="cuda", source="src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        replaces="src/repro/kernels/flash_attention.py:126",
+        replaces_note="the gradient of that forward-only Pallas kernel: the reference differentiates its jnp "
+                      "twin (src/repro/models/attention.py:80-163) with JAX",
+        launches=train_stats["kernel_launches"][f"flash_attention_bwd_{kname}"], max_abs_err=max_err,
+        ms=row["kernel_ms"][kname], plain_ms=row["plain_ms"], plain=row["plain"], bound_ms=row["bound_ms"][kname],
+        bound_by=row["bound_by"][kname], library_ms=row["library_ms"], library=row["library"],
+        backward_ms=row["backward_ms"], backward_bound_ms=row["bound_ms"]["backward"], tol=row["tol"],
+        shape=row["case"], card=card) for kname in ("rowdot", "dkdv", "dq")]
+
+
 def main() -> int:
     import torch
 
@@ -835,6 +1174,8 @@ def main() -> int:
     wkv6_planted_checks(torch, card, planted)
     scan_rows = run_mamba_cases(torch, card)
     mamba_planted_checks(torch, card, planted)
+    bwd_rows = run_backward_cases(torch, card)
+    backward_planted_checks(torch, card, planted)
     log("time", f"phases 1-3 done at {time.perf_counter() - t_start:.1f} s")
 
     # 4. serve at full width
@@ -877,7 +1218,20 @@ def main() -> int:
 
     # 8. jamba-v0.1-52b, two full-width units in bf16
     jamba_stats, jamba_long_stats = jamba_phases(torch, card, rng)
-    log("time", f"phase 8 done at {time.perf_counter() - t_start:.1f} s")
+    log("time", f"phase 8 done at {time.perf_counter() - t_start:.1f} s; "
+                f"{torch.cuda.memory_allocated()} bytes still allocated")
+
+    # 9. gemma2-2b training at full width and depth
+    train_stats = train_phase(torch, card)
+    log("time", f"phase 9 done at {time.perf_counter() - t_start:.1f} s")
+
+    # 10. training, card against CPU
+    train_check(torch, card)
+    log("time", f"phase 10 done at {time.perf_counter() - t_start:.1f} s")
+
+    # 11. the backward's library yardstick, after every peak has been read
+    library_backward(torch, card, bwd_rows)
+    log("time", f"phase 11 done at {time.perf_counter() - t_start:.1f} s")
 
     main_row = next(r for r in rows if r["case"].startswith("gemma2-serve-long bfloat16")
                     and r["window"] == 4096)
@@ -897,8 +1251,9 @@ def main() -> int:
         jamba_shape=jamba_row["case"], jamba_ms=jamba_row["kernel_ms"], jamba_library_ms=jamba_row["library_ms"],
         jamba_library_causal_ms=jamba_row["library_causal_ms"], jamba_plain_ms=jamba_row["plain_ms"],
         jamba_bound_ms=jamba_row["bound_ms"], jamba_tflops=jamba_row["tflops"],
-        jamba_max_abs_err=jamba_row["max_abs_err"], card=card,
-    ), dict(
+        jamba_max_abs_err=jamba_row["max_abs_err"], launches_train=train_stats["kernel_launches"]["flash_attention"],
+        card=card,
+    ), *backward_entries(bwd_rows, train_stats, card), dict(
         name="wkv6", route="cuda", source="src/repro_torch/kernels/csrc/wkv6.cu",
         replaces="src/repro/kernels/rwkv6_scan.py:96", launches=rwkv_stats["kernel_launches"]["wkv6"],
         max_abs_err=wkv_row["max_abs_err"], ms=wkv_row["kernel_ms"], plain_ms=wkv_row["plain_ms"],

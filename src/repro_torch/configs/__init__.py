@@ -9,13 +9,13 @@ from __future__ import annotations
 
 from typing import Dict
 
-from .base import LayerSpec, MambaSpec, ModelConfig, MoESpec, RWKVSpec, smoke_variant
+from .base import SHAPES, LayerSpec, MambaSpec, ModelConfig, MoESpec, RWKVSpec, ShapeConfig, smoke_variant
 from .gemma2_2b import CONFIG as _gemma2
 from .jamba_v0_1_52b import CONFIG as _jamba
 from .rwkv6_7b import CONFIG as _rwkv6
 
-__all__ = ["ARCHS", "get_config", "smoke_variant", "ModelConfig", "LayerSpec", "MoESpec", "MambaSpec",
-           "RWKVSpec"]
+__all__ = ["ARCHS", "SHAPES", "get_config", "smoke_variant", "ModelConfig", "LayerSpec", "MoESpec", "MambaSpec",
+           "RWKVSpec", "ShapeConfig"]
 
 ARCHS: Dict[str, ModelConfig] = {c.name: c for c in (_gemma2, _rwkv6, _jamba)}
 

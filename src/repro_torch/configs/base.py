@@ -4,8 +4,10 @@ Counterpart of ``src/repro/configs/base.py`` (:class:`LayerSpec`,
 :class:`ModelConfig`, :func:`smoke_variant`).  A model is ``n_units`` repeats
 of a ``pattern`` of :class:`LayerSpec`; parameters and caches are stacked per
 pattern position with a leading ``n_units`` dimension, as in the reference.
-Fields that only the reference's other families, training or sharding read
-are left out; they arrive with the slices that port those paths.  The rwkv
+Fields that only the reference's other families or sharding read are left
+out; they arrive with the slices that port those paths.  The training fields
+(``remat``, ``remat_loss_chunk``, ``gather_ce``) and :class:`ShapeConfig` /
+:data:`SHAPES` serve the gemma2-2b training slice.  The rwkv
 fields (:class:`RWKVSpec`, ``ssm_chunk``, ``sub_quadratic``) serve rwkv6-7b;
 the mamba and moe fields (:class:`MambaSpec`, :class:`MoESpec`,
 ``moe_block``) serve jamba-v0.1-52b.
@@ -17,7 +19,8 @@ import dataclasses
 from dataclasses import dataclass
 from typing import Dict, Optional, Tuple
 
-__all__ = ["MoESpec", "MambaSpec", "RWKVSpec", "LayerSpec", "ModelConfig", "smoke_variant"]
+__all__ = ["MoESpec", "MambaSpec", "RWKVSpec", "LayerSpec", "ModelConfig", "ShapeConfig", "SHAPES",
+           "smoke_variant"]
 
 
 @dataclass(frozen=True)
@@ -91,6 +94,9 @@ class ModelConfig:
     attn_chunk_kv: int = 1024
     ssm_chunk: int = 256           # chunk of the plain WKV and selective scans
     moe_block: int = 0             # MoE dispatch block (0 ⇒ whole sequence)
+    remat: str = "unit"            # 'none'|'unit'|'dots'
+    remat_loss_chunk: bool = False # recompute logits chunks in backward
+    gather_ce: bool = False        # legacy take_along_axis CE (baseline only)
     # capability flags
     sub_quadratic: bool = False    # eligible for long_500k
 
@@ -109,6 +115,8 @@ class ModelConfig:
             raise ValueError(f"{self.name}: mamba mixers need a MambaSpec")
         if any(s.mixer == "rwkv" for s in self.pattern) and self.rwkv is None:
             raise ValueError(f"{self.name}: rwkv mixers need an RWKVSpec")
+        if self.remat not in ("none", "unit", "dots"):
+            raise ValueError(f"{self.name}: unknown remat {self.remat!r}")
 
     @property
     def n_units(self) -> int:
@@ -120,6 +128,27 @@ class ModelConfig:
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    kind: str          # 'train' | 'prefill' | 'decode'
+    seq_len: int
+    global_batch: int
+
+    def __post_init__(self):
+        if self.kind not in ("train", "prefill", "decode"):
+            raise ValueError(f"unknown shape kind {self.kind!r}")
+
+
+#: The assigned LM-transformer shape set (same four cells for every arch).
+SHAPES: Dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", "train", 4_096, 256),
+    "prefill_32k": ShapeConfig("prefill_32k", "prefill", 32_768, 32),
+    "decode_32k": ShapeConfig("decode_32k", "decode", 32_768, 128),
+    "long_500k": ShapeConfig("long_500k", "decode", 524_288, 1),
+}
 
 
 def smoke_variant(cfg: ModelConfig) -> ModelConfig:
@@ -138,6 +167,7 @@ def smoke_variant(cfg: ModelConfig) -> ModelConfig:
         attn_chunk_q=32,
         attn_chunk_kv=32,
         ssm_chunk=16,
+        remat="none",
     )
     if cfg.n_heads:
         kw["n_heads"] = 4

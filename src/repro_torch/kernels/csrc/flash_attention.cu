@@ -62,6 +62,11 @@
 // last q tiles, which see the most causal keys) over all heads, for the tail
 // of the wave.
 //
+// Both kernels may also write each row's log-sum-exp of its scores, f32 [B, H,
+// S] in natural-log units (lse = m + log l), which the backward in
+// flash_attention_bwd.cu reads to recompute the probabilities.  The pointer
+// is null for serving, which then runs exactly as before.
+//
 // Masked scores take the reference's finite -1e30, not -inf: a row whose
 // first live tile is fully masked then gets exp(0) weights that the first
 // real key rescales away (corr = exp(-1e30 - m) = 0), where -inf would give
@@ -126,8 +131,8 @@ __device__ __forceinline__ void load_tile(float* dst, int ld, const float* src, 
 template <int NJ>
 __global__ void __launch_bounds__(NTHREADS)
 fa_fwd_scalar(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-              float* __restrict__ o, int S, int T_len, int H, int Kv, int hd, int causal,
-              int window, float cap, int q_offset, float scale) {
+              float* __restrict__ o, float* __restrict__ lse, int S, int T_len, int H, int Kv, int hd,
+              int causal, int window, float cap, int q_offset, float scale) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const int ldk = hd + 4;                // padded K rows: lane c reads row c conflict-free
@@ -240,6 +245,7 @@ fa_fwd_scalar(const float* __restrict__ q, const float* __restrict__ k, const fl
   for (int i = 0; i < ROWS; ++i) {
     const int r = warp * ROWS + i;
     if (r >= q_rows) continue;
+    if (lse != nullptr && lane == 0) lse[((int64_t)b * H + h) * S + q0 + r] = m[i] + logf(l[i]);
     const float denom = fmaxf(l[i], 1e-30f);
 #pragma unroll
     for (int j = 0; j < NJ; ++j) {
@@ -250,7 +256,7 @@ fa_fwd_scalar(const float* __restrict__ q, const float* __restrict__ k, const fl
 }
 
 template <int NJ>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, int S, int T_len,
+cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* lse, int B, int S, int T_len,
                    int H, int Kv, int hd, int causal, int window, float cap, int q_offset,
                    float scale, cudaStream_t stream) {
   const int smem = smem_bytes(hd);
@@ -259,17 +265,17 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, 
   if (err != cudaSuccess) return err;
   const dim3 grid((S + BQ - 1) / BQ, H, B);
   kern<<<grid, NTHREADS, smem, stream>>>(static_cast<const float*>(q), static_cast<const float*>(k),
-                                         static_cast<const float*>(v), static_cast<float*>(o), S, T_len,
-                                         H, Kv, hd, causal, window, cap, q_offset, scale);
+                                         static_cast<const float*>(v), static_cast<float*>(o), lse, S,
+                                         T_len, H, Kv, hd, causal, window, cap, q_offset, scale);
   return cudaGetLastError();
 }
 
-cudaError_t forward(const void* q, const void* k, const void* v, void* o, int B, int S, int T_len,
+cudaError_t forward(const void* q, const void* k, const void* v, void* o, float* lse, int B, int S, int T_len,
                     int H, int Kv, int hd, int causal, int window, float cap, int q_offset,
                     float scale, cudaStream_t stream) {
   if (hd % 4 != 0 || B > 65535 || H > 65535) return cudaErrorInvalidValue;
-  if (hd <= 32) return launch<1>(q, k, v, o, B, S, T_len, H, Kv, hd, causal, window, cap, q_offset, scale, stream);
-  return launch<8>(q, k, v, o, B, S, T_len, H, Kv, hd, causal, window, cap, q_offset, scale, stream);
+  if (hd <= 32) return launch<1>(q, k, v, o, lse, B, S, T_len, H, Kv, hd, causal, window, cap, q_offset, scale, stream);
+  return launch<8>(q, k, v, o, lse, B, S, T_len, H, Kv, hd, causal, window, cap, q_offset, scale, stream);
 }
 
 }  // namespace scalar
@@ -570,9 +576,9 @@ __device__ __forceinline__ void load_kv(const CUtensorMap* k_map, const CUtensor
 template <int NC>
 __global__ void __launch_bounds__(NTHREADS, 1)
 fa_fwd_tc(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CUtensorMap k_map,
-          const __grid_constant__ CUtensorMap v_map, __nv_bfloat16* __restrict__ o, int S, int T_len,
-          int H, int Kv, int hd, int causal, int window, float cap, int q_offset, float scale,
-          int n_qt) {
+          const __grid_constant__ CUtensorMap v_map, __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+          int S, int T_len, int H, int Kv, int hd, int causal, int window, float cap, int q_offset,
+          float scale, int n_qt) {
   constexpr int BK = block_kv(NC);
   constexpr int DV = NC * BOX;                      // output columns: hd padded to whole boxes
   constexpr int Q_BYTES = tile_bytes(BQ, NC);
@@ -758,6 +764,11 @@ fa_fwd_tc(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CUt
   __nv_bfloat16* o0 = o + ((int64_t)b * S + q0 + r0) * row_stride + (int64_t)h * hd;
   __nv_bfloat16* o1 = o0 + 8 * row_stride;
   const bool has0 = r0 < q_rows, has1 = r0 + 8 < q_rows;
+  if (lse != nullptr && lane % 4 == 0) {   // natural log: (m + log2 l) ln 2, m kept in the log2 domain
+    float* lse_row = lse + ((int64_t)b * H + h) * S + q0 + r0;
+    if (has0) lse_row[0] = (m[0] + log2f(l0)) * 0.6931471805599453f;
+    if (has1) lse_row[8] = (m[1] + log2f(l1)) * 0.6931471805599453f;
+  }
 #pragma unroll
   for (int j = 0; j < DV / 8; ++j) {
     const int c = 8 * j + col;
@@ -814,8 +825,8 @@ constexpr int ERR_NO_ENCODE = -1;   // the driver has no cuTensorMapEncodeTiled
 constexpr int ERR_ENCODE = -2;      // cuTensorMapEncodeTiled refused a map
 
 template <int NC>
-int launch(const void* q, const void* k, const void* v, void* o, int B, int S, int T_len, int H, int Kv,
-           int hd, int causal, int window, float cap, int q_offset, float scale, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* o, float* lse, int B, int S, int T_len, int H,
+           int Kv, int hd, int causal, int window, float cap, int q_offset, float scale, cudaStream_t stream) {
   if (encode_tiled() == nullptr) return ERR_NO_ENCODE;
   CUtensorMap q_map, k_map, v_map;
   if (make_map(&q_map, q, B, S, H, hd, BQ) != CUDA_SUCCESS ||
@@ -829,22 +840,22 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int S, i
   const int n_qt = (S + BQ - 1) / BQ;
   const long long blocks = (long long)n_qt * H * B;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  kern<<<(unsigned)blocks, NTHREADS, smem, stream>>>(q_map, k_map, v_map, static_cast<__nv_bfloat16*>(o), S,
-                                                      T_len, H, Kv, hd, causal, window, cap, q_offset,
+  kern<<<(unsigned)blocks, NTHREADS, smem, stream>>>(q_map, k_map, v_map, static_cast<__nv_bfloat16*>(o), lse,
+                                                      S, T_len, H, Kv, hd, causal, window, cap, q_offset,
                                                       scale, n_qt);
   return (int)cudaGetLastError();
 }
 
 int boxes(int hd) { return (hd + BOX - 1) / BOX; }
 
-int forward(const void* q, const void* k, const void* v, void* o, int B, int S, int T_len, int H, int Kv,
-            int hd, int causal, int window, float cap, int q_offset, float scale, cudaStream_t stream) {
+int forward(const void* q, const void* k, const void* v, void* o, float* lse, int B, int S, int T_len, int H,
+            int Kv, int hd, int causal, int window, float cap, int q_offset, float scale, cudaStream_t stream) {
   if (hd % 8 != 0) return (int)cudaErrorInvalidValue;   // TMA strides are whole 16 bytes
   switch (boxes(hd)) {
-    case 1: return launch<1>(q, k, v, o, B, S, T_len, H, Kv, hd, causal, window, cap, q_offset, scale, stream);
-    case 2: return launch<2>(q, k, v, o, B, S, T_len, H, Kv, hd, causal, window, cap, q_offset, scale, stream);
-    case 3: return launch<3>(q, k, v, o, B, S, T_len, H, Kv, hd, causal, window, cap, q_offset, scale, stream);
-    default: return launch<4>(q, k, v, o, B, S, T_len, H, Kv, hd, causal, window, cap, q_offset, scale, stream);
+    case 1: return launch<1>(q, k, v, o, lse, B, S, T_len, H, Kv, hd, causal, window, cap, q_offset, scale, stream);
+    case 2: return launch<2>(q, k, v, o, lse, B, S, T_len, H, Kv, hd, causal, window, cap, q_offset, scale, stream);
+    case 3: return launch<3>(q, k, v, o, lse, B, S, T_len, H, Kv, hd, causal, window, cap, q_offset, scale, stream);
+    default: return launch<4>(q, k, v, o, lse, B, S, T_len, H, Kv, hd, causal, window, cap, q_offset, scale, stream);
   }
 }
 
@@ -852,18 +863,21 @@ int forward(const void* q, const void* k, const void* v, void* o, int B, int S, 
 
 }  // namespace
 
-// dtype: 0 = float32 (scalar kernel), 1 = bfloat16 (tensor-core kernel).
+// dtype: 0 = float32 (scalar kernel), 1 = bfloat16 (tensor-core kernel).  lse:
+// null, or f32 [B, H, S] for each row's log-sum-exp.
 // Returns 0 when launched, else a cudaError_t or one of tc's negative codes.
-extern "C" int fa_forward(const void* q, const void* k, const void* v, void* o, int B, int S,
+extern "C" int fa_forward(const void* q, const void* k, const void* v, void* o, void* lse, int B, int S,
                           int T_len, int H, int Kv, int hd, int causal, int window, float softcap,
                           int q_offset, float scale, int dtype, void* stream) {
   if (B <= 0 || S <= 0 || T_len <= 0 || H <= 0 || Kv <= 0 || H % Kv != 0 || hd <= 0 || hd > MAX_HD)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return (int)scalar::forward(q, k, v, o, B, S, T_len, H, Kv, hd, causal, window, softcap, q_offset, scale, st);
+    return (int)scalar::forward(q, k, v, o, static_cast<float*>(lse), B, S, T_len, H, Kv, hd, causal, window,
+                                softcap, q_offset, scale, st);
   if (dtype == 1)
-    return tc::forward(q, k, v, o, B, S, T_len, H, Kv, hd, causal, window, softcap, q_offset, scale, st);
+    return tc::forward(q, k, v, o, static_cast<float*>(lse), B, S, T_len, H, Kv, hd, causal, window, softcap,
+                       q_offset, scale, st);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -170,9 +170,15 @@ def mamba_scan(
     """Selective scan: the CUDA kernel for a CUDA tensor, the plain version for a CPU one.
 
     ``chunk`` is the plain version's chunk; the kernel steps token by token.
+    The kernel has no backward yet: a CUDA input that requires grad raises
+    (with grad enabled) instead of returning a result with no gradient.
     """
     _check_shapes(u, delta, A, Bmat, Cmat, h0)
     if u.device.type == "cuda":
+        if torch.is_grad_enabled() and any(x is not None and x.requires_grad for x in (u, delta, A, Bmat, Cmat, h0)):
+            raise NotImplementedError(
+                "mamba_scan: the CUDA kernel has no backward yet (ROADMAP.md queue 2, item 2); its output "
+                "would carry no gradient.  Call it under torch.no_grad() or with inputs that need none")
         return _launch(u, delta, A, Bmat, Cmat, h0)
     if u.device.type == "cpu":
         return mamba_scan_plain(u, delta, A, Bmat, Cmat, chunk=chunk, h0=h0)

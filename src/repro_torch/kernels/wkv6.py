@@ -165,9 +165,15 @@ def wkv6(
     """WKV-6: the CUDA kernel for a CUDA tensor, the plain version for a CPU one.
 
     ``chunk`` is the plain version's chunk; the kernel steps token by token.
+    The kernel has no backward yet: a CUDA input that requires grad raises
+    (with grad enabled) instead of returning a result with no gradient.
     """
     _check_shapes(r, k, v, w, u, s0)
     if r.device.type == "cuda":
+        if torch.is_grad_enabled() and any(x is not None and x.requires_grad for x in (r, k, v, w, u, s0)):
+            raise NotImplementedError(
+                "wkv6: the CUDA kernel has no backward yet (ROADMAP.md queue 2, item 3); its output "
+                "would carry no gradient.  Call it under torch.no_grad() or with inputs that need none")
         return _launch(r, k, v, w, u, s0)
     if r.device.type == "cpu":
         return wkv6_plain(r, k, v, w, u, chunk=chunk, s0=s0)

@@ -1,7 +1,8 @@
-"""Model facade — counterpart of ``src/repro/models/model.py:30-62``.
+"""Model facade — counterpart of ``src/repro/models/model.py:30-98``.
 
     model = Model(cfg)                       # on the card; Model(cfg, device="cpu") on the CPU
     params = model.init(torch.Generator(model.device).manual_seed(0))
+    loss, metrics = model.train_loss(params, batch)
     cache, logits = model.prefill(params, {"tokens": tokens}, max_len=...)
     cache, logits = model.decode_step(params, cache, token, pos)
 
@@ -11,7 +12,7 @@ Only the decoder-only family is ported; its functions live in
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Any, Dict, Tuple
 
 import torch
 
@@ -39,6 +40,34 @@ class Model:
 
     def _tokens(self, tokens) -> torch.Tensor:
         return torch.as_tensor(tokens, dtype=torch.long, device=self.device)
+
+    def train_loss(self, params, batch: Dict, *, loss_chunk: int = 256):
+        """(loss, metrics) of a ``{"tokens", "targets"}`` batch (numpy or tensors of token ids)."""
+        batch = {name: self._tokens(x) for name, x in batch.items()}
+        return transformer.train_loss(params, batch, self.cfg, loss_chunk=loss_chunk)
+
+    def input_shapes(self, shape) -> Dict[str, Tuple[Tuple[int, ...], Any]]:
+        """{name: (shape, dtype)} of one input-shape cell (a :class:`~repro_torch.configs.ShapeConfig`).
+
+        Decode cells describe the per-step token input; the cache is separate state.
+        """
+        B, S = shape.global_batch, shape.seq_len
+        if shape.kind == "train":
+            return {"tokens": ((B, S), torch.int32), "targets": ((B, S), torch.int32)}
+        if shape.kind == "prefill":
+            return {"tokens": ((B, S), torch.int32)}
+        return {"tokens": ((B, 1), torch.int32)}
+
+    def make_batch(self, generator: torch.Generator, shape) -> Dict[str, torch.Tensor]:
+        """A synthetic batch of :meth:`input_shapes`, token ids uniform in the vocab, drawn from ``generator``.
+
+        JAX keys cannot be reproduced in torch, so tests that compare with the
+        reference feed both sides the same :class:`~repro_torch.data.SyntheticLM` batches.
+        """
+        if generator.device.type != self.device.type:
+            raise ValueError(f"generator is on {generator.device}, the model on {self.device}")
+        return {name: torch.randint(0, self.cfg.vocab_size, shp, generator=generator, device=self.device, dtype=dt)
+                for name, (shp, dt) in self.input_shapes(shape).items()}
 
     def prefill(self, params, batch: Dict, *, max_len: int):
         batch = dict(batch, tokens=self._tokens(batch["tokens"]))

@@ -17,14 +17,21 @@ the window.  One reference fault is not copied: when a prompt is longer than
 a ring cache, the reference keeps the last T keys at slots ``0..T-1`` while
 decode writes slot ``pos % T``; here position p always sits at slot ``p % T``
 (ROADMAP.md queue 3).
+
+Training (``lm_hidden``, ``train_loss``) is ported for stacks of attention
+layers with dense FFNs, the gemma2 family; the f32 master weights stay the
+autograd leaves and every use casts them, so gradients run through the casts.
+``remat="unit"`` recomputes each unit in the backward
+(``torch.utils.checkpoint``, non-reentrant: only the unit's inputs are saved).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Any, Dict
+from typing import Any, Dict, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from .attention import attention_layer, decode_attention_layer, init_attention, init_kv_cache
 from .layers import Init, Params, embed, init_embedding, init_mlp, init_norm, mlp, norm, softcap, unembed
@@ -38,6 +45,8 @@ __all__ = [
     "decode_step",
     "init_decode_cache",
     "count_params",
+    "lm_hidden",
+    "train_loss",
 ]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -158,6 +167,97 @@ def _block(lp, spec, lc, x, mix, cfg, dt):
     if cfg.post_block_norm:
         f = norm(lp["norm2_post"], f, kind=cfg.norm)
     return x + f
+
+
+# ---------------------------------------------------------------------------
+# training
+# ---------------------------------------------------------------------------
+
+
+def _check_trainable(cfg) -> None:
+    for spec in cfg.pattern:
+        if spec.mixer not in ("attn", "attn_local") or spec.ffn != "dense":
+            raise NotImplementedError(
+                f"{cfg.name}: training {spec.mixer} mixers with {spec.ffn} FFNs is not ported yet; it needs the "
+                f"WKV-6 and selective-scan backwards and the MoE's aux loss (ROADMAP.md queue 1, item 3g)")
+    if cfg.remat == "dots":
+        raise NotImplementedError(
+            f"{cfg.name}: remat='dots' (keep the dense products, recompute the rest) is not ported yet "
+            f"(ROADMAP.md queue 1, item 3h)")
+
+
+def _train_unit(x: torch.Tensor, unit_params, positions: torch.Tensor, cfg) -> torch.Tensor:
+    """One unit of the training forward: ``src/repro/models/transformer.py:178-197``."""
+    dt = _dtype(cfg)
+    for i, spec in enumerate(cfg.pattern):
+        lp = unit_params[f"pos{i}"]
+        h = norm(lp["norm1"], x, kind=cfg.norm)
+        mix, _ = attention_layer(lp["mixer"], h, positions, cfg, kind=spec.mixer, dtype=dt)
+        x = _block(lp, spec, None, x, mix, cfg, dt)
+    return x
+
+
+def _unit_trees(tree, n: int):
+    """The stacked unit tree as n trees, one per unit, through ``unbind``.
+
+    In the backward, ``unbind`` stacks each leaf's n slice gradients once,
+    where indexing unit u (:func:`_unit`) would add a full-size, zero-padded
+    gradient into the leaf's for every unit: the same values, n times the
+    memory traffic.
+    """
+    if not isinstance(tree, dict):
+        return tree.unbind(0)
+    subtrees = {k: _unit_trees(v, n) for k, v in tree.items()}
+    return [{k: sub[u] for k, sub in subtrees.items()} for u in range(n)]
+
+
+def lm_hidden(params, batch: Dict[str, torch.Tensor], cfg) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Embeddings → units → final norm.  Returns (hidden, moe_aux); the aux is 0 for dense FFNs."""
+    _check_trainable(cfg)
+    x = _embed_inputs(params, batch, cfg)
+    B, S = batch["tokens"].shape
+    positions = torch.arange(S, device=x.device).expand(B, S)
+    for unit in _unit_trees(params["units"], cfg.n_units):
+        if cfg.remat == "unit":
+            x = checkpoint(_train_unit, x, unit, positions, cfg, use_reentrant=False, preserve_rng_state=False)
+        else:
+            x = _train_unit(x, unit, positions, cfg)
+    x = norm(params["final_norm"], x, kind=cfg.norm)
+    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def _chunk_nll(head, x: torch.Tensor, targets: torch.Tensor, cfg) -> torch.Tensor:
+    """Σ (logsumexp - picked logit) over one [B, c] chunk: logits in the compute dtype, softcapped, then f32."""
+    logits = _logits(head, x, cfg).float()
+    lse = torch.logsumexp(logits, dim=-1)
+    # the reference's one-hot contraction (gather_ce off) and take_along_axis (on) give this same
+    # number in f32: every other term of the one-hot sum is an exact 0
+    picked = torch.gather(logits, -1, targets.long()[..., None])[..., 0]
+    return (lse - picked).sum()
+
+
+def train_loss(params, batch: Dict[str, torch.Tensor], cfg, *, loss_chunk: int = 256):
+    """Causal LM cross-entropy, sequence-chunked so [B, S, V] never exists.  Returns (loss, metrics).
+
+    The tied head is cast to the compute dtype once per call, not per chunk:
+    the same values as a cast at each use, with one copy held for the backward.
+    """
+    x, aux = lm_hidden(params, batch, cfg)
+    targets = batch["targets"]
+    B, S = targets.shape
+    c = min(loss_chunk, S)
+    if S % c:
+        raise ValueError(f"seq_len {S} is not a multiple of the loss chunk {c}")
+    head = {"embed": {"table": params["embed"]["table"].to(_dtype(cfg))}}
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(S // c):
+        xx, tt = x[:, i * c:(i + 1) * c], targets[:, i * c:(i + 1) * c]
+        if cfg.remat_loss_chunk:  # recompute the chunk's [B, c, V] logits in the backward
+            total = total + checkpoint(_chunk_nll, head, xx, tt, cfg, use_reentrant=False, preserve_rng_state=False)
+        else:
+            total = total + _chunk_nll(head, xx, tt, cfg)
+    loss = total / (B * S) + aux
+    return loss, {"loss": loss, "moe_aux": aux}
 
 
 # ---------------------------------------------------------------------------

@@ -32,6 +32,7 @@ def test_no_jax_or_reference_imports(path):
 def test_port_imports_without_loading_jax():
     code = (
         "import sys, repro_torch, repro_torch.serve, repro_torch.launch.serve, repro_torch.convert\n"
+        "import repro_torch.data, repro_torch.optim, repro_torch.train, repro_torch.launch.train\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "assert not bad, bad\n"
     )
