@@ -71,12 +71,21 @@ Phases, each of which raises on failure (the script then exits non-zero):
               batch 4 x seq 2048 of SyntheticLM(period=16, vocab_eff=256); every loss and grad
               norm finite, the last loss below the first, and per step (one microbatch) flash
               attention's forward launched exactly 52 times (26 + 26 recomputed) and each
-              backward kernel exactly 26 times; step ms, tok/s and the peak device memory;
-10. train-check — card against CPU in f32 on a full-width cut to one unit (2 layers, local and
+              backward kernel exactly 26 times; step ms, tok/s, the peak device memory and
+              Python's full garbage collections during the run (when, how long);
+10. ckpt    — phase 9's run again with checkpoints through SCISPACE (CheckpointManager, native
+              writes published by one MEU export, 2 shards, a data center on disk under build/)
+              every 4 steps and an injected node failure before step 7: exactly one restart,
+              steps [4, 8] found by an SDS search, step 4 restored into the live tensors and steps
+              5-8 replayed; launches per step as in phase 9, every loss within rtol 1e-5 of phase
+              9's and every parameter leaf within ||d|| / ||p|| <= 1e-5 of phase 9's final one, the
+              card's peak within 1 % of phase 9's; each save's bytes and pack / write / publish
+              seconds, the restore's seconds, the host's memory and the phase's wall time;
+11. train-check — card against CPU in f32 on a full-width cut to one unit (2 layers, local and
               global), B1 S320, loss chunk 64: the loss within rtol 1e-5 and every gradient leaf
               within ||card - cpu|| / ||cpu|| <= 1e-4; then 3 Trainer steps of the smoke model on
               both, losses within rtol 1e-4;
-11. library — SDPA's backward through autograd at each backward case (softcap 0, the same
+12. library — SDPA's backward through autograd at each backward case (softcap 0, the same
               mask; is_causal for a plain causal one), the backward's library yardstick.  It runs
               last: autograd leaves a cuBLAS workspace on its own thread, which would raise every
               later phase's peak.
@@ -88,6 +97,7 @@ repository's src/ next to it, it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import gc
 import json
 import math
 import subprocess
@@ -1033,14 +1043,36 @@ def jamba_phases(torch, card, rng):
 
 
 # ---------------------------------------------------------------------------
-# phases 9-11: training, card against CPU, and the backward's library yardstick
+# phases 9-12: training, checkpoint and restart, card against CPU, and the backward's library yardstick
 # ---------------------------------------------------------------------------
 
 TRAIN = dict(steps=8, seq_len=2048, global_batch=4, microbatches=1, lr=1e-3, seed=0)
 
 
+class FullCollections:
+    """Python's full (generation-2) garbage collections while active: when each began, in seconds from the
+    start, and how many ms it took.  A training step that holds one is that much longer."""
+
+    def __enter__(self):
+        self.events, self.t0, self._start = [], time.perf_counter(), None
+        gc.callbacks.append(self._callback)
+        return self
+
+    def __exit__(self, *exc):
+        gc.callbacks.remove(self._callback)
+
+    def _callback(self, phase, info):
+        if info["generation"] != 2:
+            return
+        if phase == "start":
+            self._start = time.perf_counter()
+        elif self._start is not None:
+            self.events.append(dict(at_s=self._start - self.t0, ms=1e3 * (time.perf_counter() - self._start)))
+
+
 def train_phase(torch, card):
     """gemma2-2b at full width and depth through the launcher's Trainer; exact launches per step."""
+    from repro_torch import convert
     from repro_torch.launch.train import build_trainer
 
     counters = kernel_counters()
@@ -1062,7 +1094,8 @@ def train_phase(torch, card):
     torch.cuda.reset_peak_memory_stats()
     for obj, attr in counters.values():
         setattr(obj, attr, 0)             # count only this run of the main path
-    result = trainer.run(TRAIN["steps"])
+    with FullCollections() as full_gc:
+        result = trainer.run(TRAIN["steps"])
     final = {k: getattr(*c) for k, c in counters.items()}
     peak = torch.cuda.max_memory_allocated()
     ends = marks[1:] + [final]
@@ -1083,10 +1116,128 @@ def train_phase(torch, card):
                  step_ms_after_first=sum(step_ms[1:]) / len(step_ms[1:]),
                  tok_per_s_after_first=tokens * len(step_ms[1:]) / (sum(step_ms[1:]) / 1e3),
                  wall_s=result["wall_s"], kernel_launches=final, launches_per_step=per_step,
-                 max_memory_allocated_bytes=peak, card=card)
+                 max_memory_allocated_bytes=peak, full_gc=full_gc.events, card=card)
     log("train", json.dumps(stats))
+    final_host = {path: t.detach().cpu() for path, t in convert.flatten(params).items()}  # the ckpt phase's yardstick
     del trainer, params
     torch.cuda.empty_cache()
+    return stats, final_host
+
+
+# The ckpt phase keeps its checkpoints on disk, in a PosixBackend data center under the checkout's build/, not in
+# the training launcher's in-memory one.  This phase's own numbers on the card's machine (the NVIDIA H100 80GB HBM3
+# host): MemTotal 108.4 GB, MemAvailable 93.2 GB when it starts, 80.2 GB free on the disk that holds the checkout
+# (and tempfile.gettempdir()), and a peak resident set of 77.5 GB with the checkpoints on disk (the state on the
+# host, a shard's bytes and their join, phase 9's parameters).  Held in RAM, the two checkpoints would add
+# 2 x 24.75 GB to that peak, and the in-memory store a third copy of the shard being written: well past MemTotal.
+CKPT = dict(ckpt_every=4, fail_at=6, n_shards=2)
+CKPT_DISK = 2.2       # free disk the phase asks for, in checkpoints of the state's size
+CKPT_PEAK_REL = 0.01  # the card's peak may exceed phase 9's by this share
+
+
+def host_memory() -> dict:
+    """MemTotal and MemAvailable from /proc/meminfo, and this process's peak resident set, in bytes."""
+    import resource
+
+    with open("/proc/meminfo") as fh:
+        info = {k: int(v.split()[0]) * 1024 for k, v in (line.split(":", 1) for line in fh)}
+    return dict(mem_total=info["MemTotal"], mem_available=info["MemAvailable"],
+                ru_maxrss=resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024)
+
+
+def ckpt_phase(torch, card, train_stats, train_final):
+    """Phase 9's run again, checkpointed through SCISPACE every 4 steps, through an injected node failure before
+    step 7: one restore of step 4 (found by an SDS search) and a replay of steps 5-8, held against phase 9."""
+    import shutil
+    import tempfile
+
+    from repro_torch import convert
+    from repro_torch.core import Collaboration
+    from repro_torch.launch.train import build_trainer
+    from repro_torch.train import CheckpointManager, FaultInjector
+
+    t_phase = time.perf_counter()
+    host_before = host_memory()
+    counters = kernel_counters()
+    marks = []
+    faults = FaultInjector(fail_at=[CKPT["fail_at"]])
+
+    def hook(step):  # the failure first: a step that fails leaves no mark
+        faults(step)
+        marks.append({k: getattr(*c) for k, c in counters.items()})
+
+    (ROOT / "build").mkdir(exist_ok=True)
+    root = tempfile.mkdtemp(prefix="ckpt-", dir=ROOT / "build")
+    collab = Collaboration()
+    try:
+        collab.add_datacenter("pod0", root=root, n_dtns=2)
+        ckpt = CheckpointManager(collab, run="chip-smoke", home_dc="pod0", n_shards=CKPT["n_shards"])
+        torch.cuda.empty_cache()
+        trainer = build_trainer("gemma2-2b", device="cuda", fault_hook=hook, ckpt=ckpt,
+                                ckpt_every=CKPT["ckpt_every"], **TRAIN)
+        state_bytes = sum(t.numel() * t.element_size() for t in leaves(trainer.state))
+        disk_free = shutil.disk_usage(root).free
+        if disk_free < CKPT_DISK * state_bytes:
+            raise AssertionError(f"ckpt: {disk_free} bytes free under {root}, the phase needs "
+                                 f"{CKPT_DISK} x {state_bytes}")
+        per_step = train_stats["launches_per_step"]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for obj, attr in counters.values():
+            setattr(obj, attr, 0)             # count only this run of the main path
+        result = trainer.run(TRAIN["steps"])
+        final = {k: getattr(*c) for k, c in counters.items()}
+        peak = torch.cuda.max_memory_allocated()
+        found = ckpt.list_steps()
+        ends = marks[1:] + [final]
+        steps = [{k: end[k] - start[k] for k in final} for start, end in zip(marks, ends)]
+        rows = [m for m in trainer.metrics_log if "loss" in m]
+        events = [m for m in trainer.metrics_log if "event" in m]
+        saves = [dict(step=m["step"], **m["ckpt"]) for m in rows if "ckpt" in m]
+        restores = [dict(step=m["restored_step"], restore_s=m["restore_s"]) for m in events]  # read + copy to card
+        want = train_stats["losses"]
+        loss_rel = [abs(m["loss"] - want[m["step"] - 1]) / abs(want[m["step"] - 1]) for m in rows]
+        leaf_rel, bitwise_params = {}, True
+        with torch.no_grad():
+            for path, live in convert.flatten(trainer.state["params"]).items():
+                ref = train_final[path].to(live.device)
+                leaf_rel[path] = ((live - ref).norm() / ref.norm().clamp_min(1e-30)).item()
+                bitwise_params = bitwise_params and torch.equal(live, ref)
+                del ref
+        worst = max(leaf_rel, key=leaf_rel.get)
+        stats = dict(
+            model=trainer.model.cfg.name, steps_run=len(rows), restarts=result["restarts"], fired=faults.fired,
+            events=events, ckpt_steps_discovered_via_sds=found, n_shards=CKPT["n_shards"], backend="posix",
+            state_bytes=state_bytes, saves=saves, restores=restores,
+            losses=[m["loss"] for m in rows],
+            steps=[m["step"] for m in rows], step_ms=[1e3 * m["seconds"] for m in rows],
+            max_loss_rel=max(loss_rel), loss_rtol=LOSS_RTOL,
+            losses_bitwise_equal=all(r == 0.0 for r in loss_rel), worst_leaf=worst, worst_leaf_rel=leaf_rel[worst],
+            params_bitwise_equal=bitwise_params, kernel_launches=final, launches_per_step=steps,
+            max_memory_allocated_bytes=peak, train_max_memory_allocated_bytes=train_stats["max_memory_allocated_bytes"],
+            disk_free_bytes=disk_free, host_before=host_before, card=card)
+        del trainer
+    finally:
+        collab.close()
+        shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    stats.update(host_after=host_memory(), wall_s=time.perf_counter() - t_phase)
+    log("ckpt", json.dumps(stats))
+    if stats["restarts"] != 1 or faults.fired != [CKPT["fail_at"]] or len(events) != 1:
+        raise AssertionError(f"ckpt: {stats['restarts']} restarts, failures {faults.fired}, events {events}")
+    if found != [4, 8] or [s["step"] for s in saves] != [4, 8] or [r["step"] for r in restores] != [4]:
+        raise AssertionError(f"ckpt: SDS finds steps {found}; saved {saves}, restored {restores}")
+    if stats["steps"] != [1, 2, 3, 4, 5, 6, 5, 6, 7, 8]:
+        raise AssertionError(f"ckpt: ran steps {stats['steps']}, not 1-6 then 5-8 after the restore")
+    wrong = [(i, got) for i, got in enumerate(steps) if got != per_step]
+    if len(steps) != len(rows) or wrong:
+        raise AssertionError(f"ckpt: kernel launches per step differ from phase 9's {per_step}: {wrong[:3]}")
+    if not all(r <= LOSS_RTOL for r in loss_rel):
+        raise AssertionError(f"ckpt: losses {stats['losses']} against phase 9's {want} (rtol {LOSS_RTOL})")
+    if not all(math.isfinite(r) and r <= LOSS_RTOL for r in leaf_rel.values()):
+        raise AssertionError(f"ckpt: parameter leaf {worst} differs from phase 9's by {leaf_rel[worst]:.3e}")
+    if peak > (1 + CKPT_PEAK_REL) * train_stats["max_memory_allocated_bytes"]:
+        raise AssertionError(f"ckpt: peak {peak} bytes against phase 9's {train_stats['max_memory_allocated_bytes']}")
     return stats
 
 
@@ -1166,7 +1317,7 @@ def library_backward(torch, card, rows):
         del qh, kh, vh, out
 
 
-def backward_entries(rows, train_stats, card):
+def backward_entries(rows, train_stats, ckpt_stats, card):
     """The kernels line's entries of the backward kernels, at gemma2's training shape, window 4096."""
     row = next(r for r in rows if r["label"] == "gemma2-train" and r["window"] == 4096)
     same = next(r for r in rows if r["label"] == "gemma2-train-causal")  # softcap 0: SDPA's own function
@@ -1176,7 +1327,8 @@ def backward_entries(rows, train_stats, card):
         replaces="src/repro/kernels/flash_attention.py:126",
         replaces_note="the gradient of that forward-only Pallas kernel: the reference differentiates its jnp "
                       "twin (src/repro/models/attention.py:80-163) with JAX",
-        launches=train_stats["kernel_launches"][f"flash_attention_bwd_{kname}"], max_abs_err=max_err,
+        launches=train_stats["kernel_launches"][f"flash_attention_bwd_{kname}"],
+        launches_ckpt=ckpt_stats["kernel_launches"][f"flash_attention_bwd_{kname}"], max_abs_err=max_err,
         ms=row["kernel_ms"][kname], plain_ms=row["plain_ms"], plain=row["plain"], bound_ms=row["bound_ms"][kname],
         bound_by=row["bound_by"][kname], library_ms=row["library_ms"], library=row["library"],
         backward_ms=row["backward_ms"], backward_bound_ms=row["bound_ms"]["backward"], tol=row["tol"],
@@ -1266,16 +1418,21 @@ def main() -> int:
                 f"{torch.cuda.memory_allocated()} bytes still allocated")
 
     # 9. gemma2-2b training at full width and depth
-    train_stats = train_phase(torch, card)
+    train_stats, train_final = train_phase(torch, card)
     log("time", f"phase 9 done at {time.perf_counter() - t_start:.1f} s")
 
-    # 10. training, card against CPU
-    train_check(torch, card)
+    # 10. the same training checkpointed through SCISPACE, through a failure and a restore
+    ckpt_stats = ckpt_phase(torch, card, train_stats, train_final)
+    del train_final
     log("time", f"phase 10 done at {time.perf_counter() - t_start:.1f} s")
 
-    # 11. the backward's library yardstick, after every peak has been read
-    library_backward(torch, card, bwd_rows)
+    # 11. training, card against CPU
+    train_check(torch, card)
     log("time", f"phase 11 done at {time.perf_counter() - t_start:.1f} s")
+
+    # 12. the backward's library yardstick, after every peak has been read
+    library_backward(torch, card, bwd_rows)
+    log("time", f"phase 12 done at {time.perf_counter() - t_start:.1f} s")
 
     main_row = next(r for r in rows if r["case"].startswith("gemma2-serve-long bfloat16")
                     and r["window"] == 4096)
@@ -1296,8 +1453,8 @@ def main() -> int:
         jamba_library_causal_ms=jamba_row["library_causal_ms"], jamba_plain_ms=jamba_row["plain_ms"],
         jamba_bound_ms=jamba_row["bound_ms"], jamba_tflops=jamba_row["tflops"],
         jamba_max_abs_err=jamba_row["max_abs_err"], launches_train=train_stats["kernel_launches"]["flash_attention"],
-        card=card,
-    ), *backward_entries(bwd_rows, train_stats, card), dict(
+        launches_ckpt=ckpt_stats["kernel_launches"]["flash_attention"], card=card,
+    ), *backward_entries(bwd_rows, train_stats, ckpt_stats, card), dict(
         name="wkv6", route="cuda", source="src/repro_torch/kernels/csrc/wkv6.cu",
         replaces="src/repro/kernels/rwkv6_scan.py:96", launches=rwkv_stats["kernel_launches"]["wkv6"],
         max_abs_err=wkv_row["max_abs_err"], ms=wkv_row["kernel_ms"], plain_ms=wkv_row["plain_ms"],

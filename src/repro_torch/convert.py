@@ -26,8 +26,10 @@ def path_of(keys: Iterable[Any]) -> str:
 
 
 def flatten(tree: Dict[str, Any], prefix=()) -> Dict[str, Any]:
+    """``{path: leaf}`` of a nested dict in the order JAX flattens it: keys sorted at every level."""
     out: Dict[str, Any] = {}
-    for key, leaf in tree.items():
+    for key in sorted(tree):
+        leaf = tree[key]
         if isinstance(leaf, dict):
             out.update(flatten(leaf, prefix + (key,)))
         else:

@@ -11,10 +11,15 @@ overhead).  Examples:
     PYTHONPATH=src python -m repro_torch.launch.train --arch gemma2-2b --smoke --device cpu
     PYTHONPATH=src python -m repro_torch.launch.train --arch gemma2-2b --steps 8 --seq-len 2048 \\
         --global-batch 4 --lr 1e-3
+    PYTHONPATH=src python -m repro_torch.launch.train --arch gemma2-2b --smoke --device cpu --ckpt-every 2
 
-Not ported yet, and refused with a non-zero exit: checkpointing through
-SCISPACE (``--ckpt-every`` > 0, ROADMAP.md queue 1, item 3e) and the
-cross-pod modes other than ``auto`` (queue 1, item 6).
+``--ckpt-every N`` saves every N steps through SCISPACE, as the reference
+launcher does: one in-memory data center ``pod0`` of 2 DTNs, native writes
+published by MEU, run name ``--run``; the JSON then also gives the steps an
+SDS search finds (``ckpt_steps_discovered_via_sds``) and each save's accounting
+(``ckpt_saves``: bytes, pack, write and publish seconds, MEU RPCs).  Not ported yet, and
+refused with a non-zero exit: the cross-pod modes other than ``auto``
+(ROADMAP.md queue 1, item 6).
 """
 
 from __future__ import annotations
@@ -29,12 +34,13 @@ from typing import Callable, Optional
 import torch
 
 from ..configs import get_config, smoke_variant
+from ..core import Collaboration
 from ..data import ShardedPipeline, SyntheticLM
 from ..device import resolve_device
 from ..kernels._build import build_all
 from ..models import Model
 from ..optim import AdamW, AdamWConfig
-from ..train import Trainer, TrainerConfig
+from ..train import CheckpointManager, Trainer, TrainerConfig
 from .serve import _profiled, _write_profile
 
 __all__ = ["build_trainer", "main"]
@@ -42,9 +48,11 @@ __all__ = ["build_trainer", "main"]
 
 def build_trainer(arch: str, *, smoke: bool = False, steps: int = 50, seq_len: int = 128, global_batch: int = 8,
                   microbatches: int = 1, lr: float = 3e-3, seed: int = 0, device="cuda",
-                  fault_hook: Optional[Callable[[int], None]] = None) -> Trainer:
+                  fault_hook: Optional[Callable[[int], None]] = None, ckpt: Optional[CheckpointManager] = None,
+                  ckpt_every: int = 0) -> Trainer:
     """The launcher's trainer: the reference's schedule (warmup steps // 10) and data
-    (``SyntheticLM(period=16, vocab_eff=256)``), loss chunk min(seq_len, 256)."""
+    (``SyntheticLM(period=16, vocab_eff=256)``), loss chunk min(seq_len, 256); with ``ckpt``, a save
+    every ``ckpt_every`` steps and a restore on a node failure."""
     cfg = get_config(arch)
     if smoke:
         cfg = smoke_variant(cfg)
@@ -52,8 +60,9 @@ def build_trainer(arch: str, *, smoke: bool = False, steps: int = 50, seq_len: i
     opt = AdamW(AdamWConfig(peak_lr=lr, warmup_steps=max(steps // 10, 1), total_steps=steps))
     pipe = ShardedPipeline(SyntheticLM(vocab_size=cfg.vocab_size, seq_len=seq_len, period=16, vocab_eff=256),
                            global_batch=global_batch)
-    return Trainer(model, opt, pipe, TrainerConfig(microbatches=microbatches, loss_chunk=min(seq_len, 256)),
-                   fault_hook=fault_hook, seed=seed)
+    return Trainer(model, opt, pipe, TrainerConfig(microbatches=microbatches, loss_chunk=min(seq_len, 256),
+                                                   ckpt_every=ckpt_every),
+                   ckpt=ckpt, fault_hook=fault_hook, seed=seed)
 
 
 def main(argv=None) -> int:
@@ -67,39 +76,49 @@ def main(argv=None) -> int:
     ap.add_argument("--cross-pod", default="auto", choices=["auto", "manual", "compressed"])
     ap.add_argument("--lr", type=float, default=3e-3)
     ap.add_argument("--ckpt-every", type=int, default=0)
+    ap.add_argument("--run", default="cli-run")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     ap.add_argument("--profile", default=None, metavar="DIR", help="trace the run into DIR")
     args = ap.parse_args(argv)
-    if args.ckpt_every:
-        print("repro_torch.launch.train: checkpointing through SCISPACE is not ported yet "
-              "(ROADMAP.md queue 1, item 3e); run with --ckpt-every 0", file=sys.stderr)
-        return 2
     if args.cross_pod != "auto":
         print(f"repro_torch.launch.train: --cross-pod {args.cross_pod} is not ported yet "
               f"(ROADMAP.md queue 1, item 6); run with --cross-pod auto", file=sys.stderr)
         return 2
 
-    trainer = build_trainer(args.arch, smoke=args.smoke, steps=args.steps, seq_len=args.seq_len,
-                            global_batch=args.global_batch, microbatches=args.microbatches, lr=args.lr,
-                            seed=args.seed, device=args.device)
-    on_card = trainer.model.device.type == "cuda"
-    build_s = 0.0
-    if on_card:  # build the kernels before anything is timed
-        t0 = time.perf_counter()
-        build_all()
-        build_s = time.perf_counter() - t0
-        torch.cuda.reset_peak_memory_stats()
-    with _profiled(args.profile, trainer.model.device) as prof:
-        result = trainer.run(args.steps)
-    if prof is not None:
-        result.update(_write_profile(prof, Path(args.profile), result["wall_s"], trainer.model.device))
-    losses = [m["loss"] for m in trainer.metrics_log if "loss" in m]
-    result["step_ms"] = [1e3 * m["seconds"] for m in trainer.metrics_log]
-    result["kernel_build_s"] = build_s
-    print(json.dumps({**result, "first_loss": losses[0], "last_loss": losses[-1],
-                      "max_memory_allocated_bytes": torch.cuda.max_memory_allocated() if on_card else None,
-                      "device": torch.cuda.get_device_name(trainer.model.device) if on_card else "cpu"}, indent=1))
+    collab, ckpt = None, None
+    if args.ckpt_every:
+        collab = Collaboration()
+        collab.add_datacenter("pod0", n_dtns=2)
+        ckpt = CheckpointManager(collab, run=args.run, home_dc="pod0")
+    try:
+        trainer = build_trainer(args.arch, smoke=args.smoke, steps=args.steps, seq_len=args.seq_len,
+                                global_batch=args.global_batch, microbatches=args.microbatches, lr=args.lr,
+                                seed=args.seed, device=args.device, ckpt=ckpt, ckpt_every=args.ckpt_every)
+        on_card = trainer.model.device.type == "cuda"
+        build_s = 0.0
+        if on_card:  # build the kernels before anything is timed
+            t0 = time.perf_counter()
+            build_all()
+            build_s = time.perf_counter() - t0
+            torch.cuda.reset_peak_memory_stats()
+        with _profiled(args.profile, trainer.model.device) as prof:
+            result = trainer.run(args.steps)
+        if prof is not None:
+            result.update(_write_profile(prof, Path(args.profile), result["wall_s"], trainer.model.device))
+        rows = [m for m in trainer.metrics_log if "loss" in m]
+        result["step_ms"] = [1e3 * m["seconds"] for m in rows]
+        result["kernel_build_s"] = build_s
+        if ckpt is not None:
+            result["ckpt_steps_discovered_via_sds"] = ckpt.list_steps()
+            result["ckpt_saves"] = [dict(step=m["step"], **m["ckpt"]) for m in rows if "ckpt" in m]
+        print(json.dumps({**result, "first_loss": rows[0]["loss"], "last_loss": rows[-1]["loss"],
+                          "max_memory_allocated_bytes": torch.cuda.max_memory_allocated() if on_card else None,
+                          "device": torch.cuda.get_device_name(trainer.model.device) if on_card else "cpu"},
+                         indent=1))
+    finally:
+        if collab is not None:
+            collab.close()
     return 0
 
 

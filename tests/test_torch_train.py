@@ -4,8 +4,8 @@ gemma2-2b's smoke variant in f32 on the CPU.  1 and 4 microbatches agree
 (``tests/test_train.py:28-43``: loss rtol 1e-5, params atol 1e-5 rtol 1e-4);
 three steps of the port's ``build_train_step`` follow the reference's run on a
 ``(1,)`` data mesh from the same initial parameters and batches, losses at
-rtol 1e-4; the launcher trains the smoke model with a falling loss and
-refuses what is not ported yet.
+rtol 1e-4; the launcher trains the smoke model with a falling loss,
+checkpoints through SCISPACE, and refuses what is not ported yet.
 """
 
 import contextlib
@@ -28,12 +28,14 @@ from repro.train.step import build_train_step as jax_build_train_step
 from repro.train.step import init_state as jax_init_state
 from repro_torch import convert
 from repro_torch.configs import get_config, smoke_variant
+from repro_torch.core import Collaboration
 from repro_torch.data import ShardedPipeline, SyntheticLM
 from repro_torch.launch import train as launch_train
 from repro_torch.models import Model
 from repro_torch.optim import AdamW, AdamWConfig
 from repro_torch.optim.adamw import tree_leaves
-from repro_torch.train import FaultInjector, Trainer, TrainerConfig, build_train_step, init_state
+from repro_torch.train import (CheckpointManager, FaultInjector, Trainer, TrainerConfig, build_train_step,
+                               init_state)
 
 OPT = dict(peak_lr=1e-3, warmup_steps=2, total_steps=50)
 
@@ -114,9 +116,16 @@ def test_launcher_trains_the_smoke_model_on_the_cpu():
 
 @pytest.mark.parametrize("argv,item", [(["--ckpt-every", "1"], "item 3e"), (["--cross-pod", "manual"], "item 6")])
 def test_launcher_refuses_what_is_not_ported(argv, item, capsys):
+    """The options the launcher refused until their ROADMAP item was ported: checkpointing (item 3e) runs
+    now and finds its step by an SDS search; the cross-pod modes (item 6) are still refused."""
     rc = launch_train.main(["--arch", "gemma2-2b", "--smoke", "--device", "cpu", "--steps", "1", *argv])
-    assert rc != 0
-    assert item in capsys.readouterr().err
+    out, err = capsys.readouterr()
+    if item == "item 3e":
+        assert rc == 0
+        assert json.loads(out)["ckpt_steps_discovered_via_sds"] == [1]
+    else:
+        assert rc != 0
+        assert item in err
 
 
 def test_step_refuses_cross_pod_modes():
@@ -137,5 +146,14 @@ def test_trainer_without_checkpoints_reraises_a_fault():
     with pytest.raises(RuntimeError, match="injected node failure at step 2"):
         trainer.run(4)
     assert faults.fired == [2] and trainer.current_step() == 2 and len(trainer.metrics_log) == 2
-    with pytest.raises(NotImplementedError, match="item 3e"):
-        Trainer(model, opt, _pipe(cfg.vocab_size), ckpt=object())
+    # with checkpoints the same fault is a restart, no longer a refusal
+    collab = Collaboration()
+    collab.add_datacenter("pod0", n_dtns=2)
+    try:
+        faults = FaultInjector(fail_at=[2])
+        trainer = Trainer(model, opt, _pipe(cfg.vocab_size, B=2, S=16), TrainerConfig(loss_chunk=16, ckpt_every=1),
+                          ckpt=CheckpointManager(collab, run="reraise", home_dc="pod0"), fault_hook=faults)
+        result = trainer.run(4)
+    finally:
+        collab.close()
+    assert faults.fired == [2] and result["restarts"] == 1 and result["final_step"] == 4
