@@ -16,7 +16,10 @@ Phases, each of which raises on failure (the script then exits non-zero):
               bound times; flash rows also give the kernel variant that the
               launch counters show ran (bf16 must run the tensor-core kernel, f32
               the scalar one), TFLOP/s of the bound's work, and for a plain causal
-              mask SDPA with is_causal=True; WKV-6 and the selective scan at the
+              mask SDPA with is_causal=True; the dense phase's geometries in bf16 at
+              S = 4, 23, 300 and 4096 (codeqwen B1 H32 Kv32, nemotron H48 Kv8, i.e. six
+              query heads per KV head, olmoe H16 Kv16; hd 128), and nemotron's G = 6
+              in f32 at S = 300; WKV-6 and the selective scan at the
               scan tolerance, their tiles' tails included (S = 4095, the smoke
               C = 16, a ragged di of 200 and 202);
    backward — the flash-attention backward's three kernels (D = rowsum(do o), dk / dv, dq)
@@ -24,11 +27,15 @@ Phases, each of which raises on failure (the script then exits non-zero):
               one: the smoke shape, gemma2's training shape (bf16 B4 S=T=2048 H8 Kv4 hd256,
               softcap 50) with window 4096 and 0, and with softcap 0 and window 0 (plain causal:
               the function SDPA's causal backward computes), B1 S=T=4608 where the window binds,
-              B2 with a ragged S=300, and f32 at S=320; gates per gradient, atol 2e-2 x rms(plain)
-              with rtol 2e-2 in bf16 and 2e-5 scaled the same way in f32; CUDA-event times of each
+              B2 with a ragged S=300, f32 at S=320, and stablelm-3b's training shape (bf16 B4
+              S=T=2048 H32 Kv32 hd80, which the kernels pad to 128 columns, softcap 0, window 0;
+              scripts/flash_variants.py --padding prices the padding); where bf16 pads hd to whole
+              64-column boxes (the smoke shape's 16, stablelm's 80) the padded gradient columns must
+              come out zero and the rest bitwise the wrapper's; gates per gradient, atol 2e-2 x rms(plain) with rtol 2e-2
+              in bf16 and 2e-5 scaled the same way in f32; CUDA-event times of each
               kernel and of the whole backward against its bound and the plain version, which the
-              backward must beat at gemma2's training shape; phase 2 must report no spill for the
-              bf16 backward kernels;
+              backward must beat at gemma2's and stablelm's training shapes; phase 2 must report no
+              spill for the bf16 backward kernels (hd 80 runs their 2-box instantiations);
    planted  — copies of the kernels with a fault built in must fail the same gates:
               flash attention that (a) skips the last live KV tile of every block or
               (b) treats the diagonal tiles as interior and skips their causal mask,
@@ -38,7 +45,10 @@ Phases, each of which raises on failure (the script then exits non-zero):
               backward that (a) drops the softcap's derivative, (b) takes dk and dv from the first
               query head of each group only, (c) leaves D out of ds or (d) leaves the last stage
               of dk / dv's TMA ring without its dO (q scaled by 4, so that the softcap's
-              derivative matters);
+              derivative matters), at gemma2's geometry (B1 S=T=2048 H8 Kv4 hd256) and at
+              stablelm's training shape with softcap 50; at stablelm's G = 1 the first-head-only
+              fault changes nothing and must give the committed gradients bitwise, so it runs
+              once more at H32 Kv8 hd80, where it must fail;
 4. serve    — gemma2-2b at full width (26 layers, bf16 compute, f32 weights from a
               seeded torch.Generator) through ServeEngine: 8 prompts of 4-24 tokens,
               4 slots, 16 new tokens, greedy; flash attention must launch exactly 26
@@ -73,19 +83,38 @@ Phases, each of which raises on failure (the script then exits non-zero):
               attention's forward launched exactly 52 times (26 + 26 recomputed) and each
               backward kernel exactly 26 times; step ms, tok/s, the peak device memory and
               Python's full garbage collections during the run (when, how long);
-10. ckpt    — phase 9's run again with checkpoints through SCISPACE (CheckpointManager, native
-              writes published by one MEU export, 2 shards, a data center on disk under build/)
-              every 4 steps and an injected node failure before step 7: exactly one restart,
+10. ckpt    — phase 9's run cut to 14 of gemma2-2b's 26 layers (every width kept: two saves of the
+              full depth write more than the card's machine lets one command write to its disk),
+              once clean (ckpt-clean) and once with checkpoints through SCISPACE (CheckpointManager,
+              native writes published by one MEU export, 2 shards, a data center on disk under
+              build/) every 4 steps and an injected node failure before step 7: exactly one restart,
               steps [4, 8] found by an SDS search, step 4 restored into the live tensors and steps
-              5-8 replayed; launches per step as in phase 9, every loss within rtol 1e-5 of phase
-              9's and every parameter leaf within ||d|| / ||p|| <= 1e-5 of phase 9's final one, the
-              card's peak within 1 % of phase 9's; each save's bytes and pack / write / publish
+              5-8 replayed; launches per step as in the clean run, every loss within rtol 1e-5 of
+              its and every parameter leaf within ||d|| / ||p|| <= 1e-5 of its final one, the
+              card's peak within 1 % of its; each save's bytes and pack / write / publish
               seconds, the restore's seconds, the host's memory and the phase's wall time;
-11. train-check — card against CPU in f32 on a full-width cut to one unit (2 layers, local and
-              global), B1 S320, loss chunk 64: the loss within rtol 1e-5 and every gradient leaf
-              within ||card - cpu|| / ||cpu|| <= 1e-4; then 3 Trainer steps of the smoke model on
-              both, losses within rtol 1e-4;
-12. library — SDPA's backward through autograd at each backward case (softcap 0, the same
+11. train-check — card against CPU in f32 on a full-width cut of gemma2-2b to one unit (2 layers,
+              local and global) and of codeqwen1.5-7b to one layer (its untied head), B1 S320, loss
+              chunk 64: the loss within rtol 1e-5 and every gradient leaf (lm_head and embed apart)
+              within ||card - cpu|| / ||cpu|| <= 1e-4; then 3 Trainer steps of gemma2's smoke model
+              on both, losses within rtol 1e-4;
+12. dense   — codeqwen1.5-7b, stablelm-3b, nemotron-4-15b and olmoe-1b-7b, each at full width and
+              depth on the serving launcher's weights (every leaf drawn in f32 and stored in bf16 as
+              the engine casts it, no master copy: nemotron's 15.6 B parameters in 31.3 GB), bf16
+              compute: served as in phase 4 with flash attention launched exactly n_layers times per
+              prefill (32, 32, 32, 16), every launch on the tensor-core kernel, and no kernel per
+              decode step; one 4096-token prompt each (olmoe's MoE capacity 640); card against CPU
+              at 2e-3 in f32 on a full-width 2-layer cut over a 64-token prompt plus 2 decode steps,
+              and on the smoke model over 20 steps; the weight bytes held, and the draw's peak within
+              what the launcher's memory check counts (the weights plus the largest leaf in f32);
+              then `python -m repro_torch.launch.serve --arch nemotron-4-15b` through its main(), as
+              a user runs it: its stats must report 15,628,775,424 parameters, the meta init's
+              weight bytes, a draw peak within its check, and n_layers tensor-core flash launches per
+              prefill; the phase's wall time;
+13. dense-train — stablelm-3b trained as in phase 9 (full width and depth, 8 steps, B4 S2048,
+              remat="unit"): per step flash attention's forward exactly 64 times (32 + 32
+              recomputed) and each backward kernel 32 times, at hd 80;
+14. library — SDPA's backward through autograd at each backward case (softcap 0, the same
               mask; is_causal for a plain causal one), the backward's library yardstick.  It runs
               last: autograd leaves a cuBLAS workspace on its own thread, which would raise every
               later phase's peak.
@@ -214,7 +243,17 @@ def attention_cases():
             cases.append((f"hd{hd}", dtype, 1, 200, 200, 4, 2, hd, 0, 50.0, 0, True))
         cases.append(("B2-ragged", dtype, 2, 300, 300, 8, 4, 256, 0, 50.0, 0, True))
         cases.append(("bidirectional", dtype, 2, 130, 260, 4, 4, 128, 0, 0.0, 0, False))
+    # the dense phase's archs at their serve prompts' lengths and the 4096-token long prompt: codeqwen's
+    # and olmoe's MHA at hd 128, nemotron's GQA 48/8 (six query heads per KV head); then G = 6 in f32
+    for label, H, Kv in DENSE_ATTENTION:
+        for S in (4, 23, 300, 4096):
+            cases.append((label, "bfloat16", 1, S, S, H, Kv, 128, 0, 0.0, 0, True))
+    cases.append(("nemotron", "float32", 1, 300, 300, 48, 8, 128, 0, 0.0, 0, True))
     return cases
+
+
+# the attention geometry (label, H, Kv) of each arch of the dense phase, all at hd 128
+DENSE_ATTENTION = (("codeqwen", 32, 32), ("nemotron", 48, 8), ("olmoe", 16, 16))
 
 
 def live_pairs(torch, B, S, T, H, window, q_offset=0, causal=True):
@@ -382,6 +421,12 @@ def build_everything(card):
               if "0 bytes spill stores" not in props or "0 bytes spill loads" not in props}
     if len(tc) != 8 or spills:  # dkdv and dq at 1-4 boxes of 64 columns
         raise AssertionError(f"build: ptxas reports {len(tc)} of the 8 bf16 backward kernels; spills: {spills}")
+    import torch
+
+    from repro_torch.kernels.flash_attention import backward_geometry
+
+    log("build", f"stablelm-3b's hd 80 runs the backward padded to {backward_geometry(torch.bfloat16, 80).hd} "
+                 f"columns: the 2-box instantiations of dkdv and dq, among the 8 checked for spills above")
     return {name: lib for name, (_, lib) in planted.items()}
 
 
@@ -439,7 +484,9 @@ def backward_cases():
     (B4 S=T=2048) with its local window (4096, wider than the sequence) and with none; one
     4608-token sequence, where the window binds; two rows of a ragged 300; f32 at 320.  Last,
     appended so that the earlier cases keep their seeds, the training shape with softcap 0 and
-    window 0: plain causal attention, the function SDPA's causal backward computes."""
+    window 0: plain causal attention, the function SDPA's causal backward computes; and
+    stablelm-3b's training shape (MHA at hd 80, which the bf16 kernels pad to 128 columns; what the
+    padding costs is priced by scripts/flash_variants.py --padding)."""
     return [("smoke", "bfloat16", 2, 64, 4, 2, 16, 0, 0.0),
             ("smoke", "float32", 2, 64, 4, 2, 16, 0, 0.0),
             ("gemma2-train", "bfloat16", 4, 2048, 8, 4, 256, 4096, 50.0),
@@ -447,7 +494,8 @@ def backward_cases():
             ("gemma2-window-binds", "bfloat16", 1, 4608, 8, 4, 256, 4096, 50.0),
             ("gemma2-B2-ragged", "bfloat16", 2, 300, 8, 4, 256, 0, 50.0),
             ("gemma2-f32", "float32", 1, 320, 8, 4, 256, 4096, 50.0),
-            ("gemma2-train-causal", "bfloat16", 4, 2048, 8, 4, 256, 0, 0.0)]
+            ("gemma2-train-causal", "bfloat16", 4, 2048, 8, 4, 256, 0, 0.0),
+            ("stablelm-train", "bfloat16", 4, 2048, 32, 32, 80, 0, 0.0)]
 
 
 def backward_inputs(torch, dtype, B, S, H, Kv, hd, q_scale, seed):
@@ -496,6 +544,8 @@ def bwd_counts():
 
 
 def run_backward_cases(torch, card):
+    import torch.nn.functional as F
+
     import repro_torch.kernels.flash_attention as fa
 
     rows = []
@@ -519,6 +569,15 @@ def run_backward_cases(torch, card):
                                      f"{tuple(want.shape)}")
             tols[gname] = grad_tol(dtype, want)
             errs[gname] = check_close(f"{name} {gname}", got, want, tols[gname])
+        padded_zero = None
+        wide = fa.backward_geometry(q.dtype, hd).hd
+        if wide != hd:  # what the wrapper runs: the columns padded with zeros must come out zero, the rest bitwise
+            padded = [F.pad(x, (0, wide - hd)) for x in (q, k, v, o, do)]
+            full = fa.flash_attention_bwd(*padded[:4], lse, padded[4], scale=1.0 / math.sqrt(hd), **kw)
+            padded_zero = not any(int(g[..., hd:].count_nonzero()) for g in full)
+            if not padded_zero or not all(torch.equal(g[..., :hd], w) for g, w in zip(full, grads)):
+                raise AssertionError(f"{name}: with hd padded to {wide} the padded gradient columns are not zero, "
+                                     f"or the others differ from the wrapper's")
         launches, _ = fa.backward_launches(q, k, v, o, lse, do, **kw)
         kernel_ms = {kname: cuda_ms(torch, launch) for kname, launch in launches}
         backward_ms = cuda_ms(torch, lambda: fa.flash_attention_bwd(q, k, v, o, lse, do, **kw))
@@ -526,27 +585,37 @@ def run_backward_cases(torch, card):
         plain_ms = cuda_ms(torch, lambda: fa.flash_attention_bwd_plain(q, k, v, o, lse, do, **kw), max_reps=5)
         bounds = backward_bounds(torch, dtype, B, S, H, Kv, hd, window)
         row = dict(case=name, label=label, dtype=dtype, B=B, S=S, H=H, Kv=Kv, hd=hd, window=window, cap=cap,
-                   seed=seed, max_abs_err=errs, tol=tols, kernel_ms=kernel_ms, backward_ms=backward_ms,
+                   seed=seed, max_abs_err=errs, tol=tols, padded_hd=wide, padded_columns_zero=padded_zero,
+                   kernel_ms=kernel_ms, backward_ms=backward_ms,
                    forward_with_lse_ms=forward_ms,
                    plain_ms=plain_ms, plain="flash_attention_bwd_plain (all three gradients)",
                    bound_ms={n: b[0] for n, b in bounds.items()}, bound_by={n: b[1] for n, b in bounds.items()},
                    card=card)
         print(json.dumps(row), flush=True)
-        if label.startswith("gemma2-train") and not backward_ms < plain_ms:
+        if label.startswith(("gemma2-train", "stablelm-train")) and not backward_ms < plain_ms:
             raise AssertionError(f"{name}: the backward kernels take {backward_ms:.3f} ms, no faster than "
                                  f"their plain version's {plain_ms:.3f} ms")
         rows.append(row)
     return rows
 
 
-def backward_planted_checks(torch, card, planted):
+# the planted backward faults' geometries (B, S, H, Kv, hd), each with softcap 50 and q scaled by 4 so that
+# 1 - t² is far from 1: gemma2's, and stablelm-3b's training shape (hd 80, padded to 128 columns)
+PLANTED_BWD_SHAPES = ((1, 2048, 8, 4, 256), (4, 2048, 32, 32, 80))
+# stablelm's heads with 4 per KV head: where the first-head-only fault can show at hd 80
+PLANTED_BWD_GROUPED_HD80 = (4, 2048, 32, 8, 80)
+
+
+def backward_planted_checks(torch, card, planted, shape, names=None):
     """Each faulty build of the backward must put elements of dq, dk or dv outside the bf16 gate,
-    where the committed build puts none: gemma2's geometry, q scaled by 4 so that 1 - t² is far from 1."""
+    where the committed build puts none, at ``shape`` with softcap 50 and q scaled by 4.  With one
+    query head per KV head (G = 1) the first-head-only fault changes nothing: there it must give
+    the committed build's gradients bitwise."""
     import ctypes
 
     import repro_torch.kernels.flash_attention as fa
 
-    B, S, H, Kv, hd = 1, 2048, 8, 4, 256
+    B, S, H, Kv, hd = shape
     kw = dict(causal=True, window=0, logit_softcap=50.0)
     q, k, v, do = backward_inputs(torch, "bfloat16", B, S, H, Kv, hd, 4.0, seed=400)
     o, lse = fa.flash_attention_with_lse(q, k, v, **kw)
@@ -556,7 +625,8 @@ def backward_planted_checks(torch, card, planted):
     def outside(grads):
         return {g: n_outside(got, want, tol) for g, got, want, tol in zip(("dq", "dk", "dv"), grads, plain, tols)}
 
-    good = outside(fa.flash_attention_bwd(q, k, v, o, lse, do, **kw))
+    committed = fa.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    good = outside(committed)
     if any(good.values()):
         raise AssertionError(f"planted: the committed backward fails its own gate at q x 4: {good}")
     case = f"bfloat16 B{B} S=T={S} H{H} Kv{Kv} hd{hd} window0 cap50, q x 4"
@@ -566,6 +636,8 @@ def backward_planted_checks(torch, card, planted):
               ("flash_bwd_last_stage_unwritten",
                "dk / dv never load dO into the last stage of the TMA ring (its expected bytes cut to match)"))
     for name, fault in checks:
+        if names is not None and name not in names:
+            continue
         lib = fa._bind_bwd(ctypes.CDLL(str(planted[name])))
         good_lib, fa._bwd_lib = fa._bwd_lib, lambda: lib
         try:
@@ -574,10 +646,15 @@ def backward_planted_checks(torch, card, planted):
         finally:
             fa._bwd_lib = good_lib
         bad = outside(grads)
+        no_op = name == "flash_bwd_first_head_only" and H == Kv
+        same = all(torch.equal(a, b) for a, b in zip(grads, committed))
         log("planted", json.dumps(dict(fault=f"flash backward: {fault}", case=case, outside_tol=bad,
-                                       committed_outside_tol=good, elements=[g.numel() for g in grads],
-                                       tol=tols, card=card)))
-        if not any(bad.values()):
+                                       committed_outside_tol=good, bitwise_committed=same,
+                                       expected="bitwise the committed build (G = 1)" if no_op else "outside",
+                                       elements=[g.numel() for g in grads], tol=tols, card=card)))
+        if no_op and not same:
+            raise AssertionError(f"planted {name}: at G = 1 the fault changes nothing, yet the gradients differ")
+        if not no_op and not any(bad.values()):
             raise AssertionError(f"planted {name}: the backward gate passed a kernel where {fault}")
 
 
@@ -1042,6 +1119,112 @@ def jamba_phases(torch, card, rng):
     return stats, long_stats
 
 
+# the archs with an untied output head, served at full width and depth in the dense phase
+DENSE_ARCHS = ("codeqwen1.5-7b", "stablelm-3b", "nemotron-4-15b", "olmoe-1b-7b")
+DENSE_CHECK_PROMPT = 64  # tokens of the full-width 2-layer cut's card-vs-CPU prompt (nemotron's cut: 3.9 B parameters)
+
+
+def dense_phases(torch, card):
+    """Each arch of DENSE_ARCHS at full width and depth, bf16 compute, on the serving launcher's weights (each
+    leaf drawn in f32 and stored as the engine casts it, no master copy): serve as phase 4 does, one 4096-token
+    prompt, and card against CPU in f32 on a full-width 2-layer cut and on the smoke model."""
+    from repro_torch.configs import get_config, smoke_variant
+    from repro_torch.launch.serve import draw_peak_bytes, weight_bytes
+    from repro_torch.models import Model
+
+    rng = np.random.default_rng(24)
+    out = {}
+    for arch in DENSE_ARCHS:
+        t_arch = time.perf_counter()
+        cfg = get_config(arch)
+        per_pass = {"prefill": launch_counts(n_flash=cfg.n_layers), "decode": launch_counts()}
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        model = Model(cfg, device="cuda")
+        params = model.init(torch.Generator(device="cuda").manual_seed(0), compute_weights=True)
+        torch.cuda.synchronize()
+        held = sum(t.numel() * t.element_size() for t in leaves(params))
+        draw_peak = torch.cuda.max_memory_allocated() - before
+        n = model.count_params(params)
+        dtypes = {}
+        for t in leaves(params):
+            dtypes[str(t.dtype)] = dtypes.get(str(t.dtype), 0) + t.numel()
+        info = dict(model=arch, layers=cfg.n_layers, params=n, weight_bytes=held, params_by_dtype=dtypes,
+                    draw_peak_bytes=draw_peak, launcher_draw_peak_bytes=draw_peak_bytes(cfg), card=card)
+        log(f"dense {arch}", json.dumps(info))
+        if held != weight_bytes(cfg) or "lm_head" not in params:
+            raise AssertionError(f"dense {arch}: {held} bytes of weights held, the launcher counts {weight_bytes(cfg)}")
+        if draw_peak > draw_peak_bytes(cfg):
+            raise AssertionError(f"dense {arch}: the draw peaked at {draw_peak} bytes over what was held before, "
+                                 f"more than the {draw_peak_bytes(cfg)} the launcher's memory check counts")
+        prompts = [rng.integers(0, cfg.vocab_size, size=int(rng.integers(4, 25))) for _ in range(8)]
+        eng, stats = serve(torch, model, params, card, prompts=prompts, max_len=256, slots=4, max_new=16,
+                           phase=f"dense {arch}", per_pass=per_pass)
+        del params  # the engine holds the same tensors
+        long_stats = serve(torch, model, eng.params, card, prompts=[rng.integers(0, cfg.vocab_size, size=4096)],
+                           max_len=8192, slots=1, max_new=8, phase=f"dense-long {arch}", per_pass=per_pass)[1]
+        del eng
+        torch.cuda.empty_cache()
+
+        # depth cut to 2 layers, every width full, f32: the CPU holds the cut too, so its prompt stays short
+        cut = cfg.replace(n_layers=2, dtype="float32")
+        cut_params = Model(cut, device="cuda").init(torch.Generator(device="cuda").manual_seed(2))
+        compare_with_cpu(torch, cut, cut_params, rng.integers(0, cut.vocab_size, size=(1, DENSE_CHECK_PROMPT)),
+                         [int(t) for t in rng.integers(0, cut.vocab_size, size=2)], f"dense-check {arch}")
+        del cut_params
+        torch.cuda.empty_cache()
+        small = smoke_variant(cfg)
+        small_params = Model(small, device="cuda").init(torch.Generator(device="cuda").manual_seed(1))
+        compare_with_cpu(torch, small, small_params, rng.integers(0, small.vocab_size, size=(1, 20)),
+                         [int(t) for t in rng.integers(0, small.vocab_size, size=20)], f"dense-check {arch}")
+        del small_params
+        torch.cuda.empty_cache()
+        out[arch] = dict(info, serve=stats, long=long_stats, wall_s=time.perf_counter() - t_arch)
+        log("time", f"dense {arch} done in {out[arch]['wall_s']:.1f} s")
+    return out
+
+
+def launcher_serve(torch, card, arch):
+    """``python -m repro_torch.launch.serve --arch <arch>`` as a user runs it, through its ``main``: the memory
+    check against the card's free memory, the kernels' build, the compute-dtype draw and 8 requests of 16 new
+    tokens.  Its stats must report the meta init's parameters and weight bytes, a draw peak within what the
+    check counts, and exactly n_layers tensor-core flash launches per prefill, none per decode step."""
+    import contextlib
+    import io
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.models.transformer import count_params, init_lm
+
+    cfg = get_config(arch)
+    counters = kernel_counters()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    for obj, attr in counters.values():
+        setattr(obj, attr, 0)             # count only the launcher's run
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        rc = launch_serve.main(["--arch", arch, "--requests", "8", "--max-new", "16"])
+    launches = {k: getattr(*c) for k, c in counters.items()}
+    torch.cuda.empty_cache()
+    stats = json.loads(printed.getvalue())
+    want = {k: n * stats["prefills"] for k, n in launch_counts(n_flash=cfg.n_layers).items()}
+    stats.update(exit_code=rc, kernel_launches=launches, allocated_before_bytes=before, card=card)
+    log(f"launcher {arch}", json.dumps(stats))
+    if rc != 0 or stats["prefills"] != 8 or stats["params"] != count_params(init_lm(cfg, None, "meta")):
+        raise AssertionError(f"launcher {arch}: exit {rc}, {stats['prefills']} prefills, {stats['params']} parameters")
+    if stats["weight_bytes"] != launch_serve.weight_bytes(cfg):
+        raise AssertionError(f"launcher {arch}: holds {stats['weight_bytes']} bytes of weights, its meta init counts "
+                             f"{launch_serve.weight_bytes(cfg)}")
+    if stats["draw_peak_bytes"] - before > launch_serve.draw_peak_bytes(cfg):
+        raise AssertionError(f"launcher {arch}: the draw peaked at {stats['draw_peak_bytes'] - before} bytes, more "
+                             f"than the {launch_serve.draw_peak_bytes(cfg)} its memory check counts")
+    if launches != want:
+        raise AssertionError(f"launcher {arch}: kernel launches {launches}, expected {want}")
+    return stats
+
+
 # ---------------------------------------------------------------------------
 # phases 9-12: training, checkpoint and restart, card against CPU, and the backward's library yardstick
 # ---------------------------------------------------------------------------
@@ -1070,9 +1253,12 @@ class FullCollections:
             self.events.append(dict(at_s=self._start - self.t0, ms=1e3 * (time.perf_counter() - self._start)))
 
 
-def train_phase(torch, card):
-    """gemma2-2b at full width and depth through the launcher's Trainer; exact launches per step."""
+def train_phase(torch, card, arch="gemma2-2b", phase="train", keep_final=False, n_layers=None):
+    """``arch`` at full width through the launcher's Trainer, at full depth or cut to ``n_layers``; exact
+    launches per step.  With ``keep_final`` also returns the final parameters on the host (the ckpt phase's
+    yardstick)."""
     from repro_torch import convert
+    from repro_torch.configs import get_config
     from repro_torch.launch.train import build_trainer
 
     counters = kernel_counters()
@@ -1082,12 +1268,15 @@ def train_phase(torch, card):
         marks.append({k: getattr(*c) for k, c in counters.items()})
 
     torch.cuda.empty_cache()
-    trainer = build_trainer("gemma2-2b", device="cuda", fault_hook=mark, **TRAIN)
+    t_phase = time.perf_counter()
+    trainer = build_trainer(arch, device="cuda", fault_hook=mark, n_layers=n_layers, **TRAIN)
     cfg = trainer.model.cfg
     params = trainer.state["params"]
     dtypes = sorted({str(t.dtype) for t in leaves(params)})
-    if cfg.n_layers != 26 or cfg.remat != "unit" or cfg.dtype != "bfloat16" or dtypes != ["torch.float32"]:
-        raise AssertionError(f"train: {cfg.n_layers} layers, remat {cfg.remat}, compute {cfg.dtype}, params {dtypes}")
+    if (cfg.n_layers != (n_layers or get_config(arch).n_layers) or cfg.remat != "unit" or cfg.dtype != "bfloat16"
+            or dtypes != ["torch.float32"]):
+        raise AssertionError(f"{phase}: {cfg.n_layers} layers, remat {cfg.remat}, compute {cfg.dtype}, "
+                             f"params {dtypes}")
     n_attn = cfg.n_layers
     per_step = launch_counts(n_flash=2 * n_attn, n_bwd=n_attn)   # forward, recomputed forward, backward
     torch.cuda.synchronize()
@@ -1102,12 +1291,12 @@ def train_phase(torch, card):
     steps = [{k: end[k] - start[k] for k in final} for start, end in zip(marks, ends)]
     wrong = [(i, got) for i, got in enumerate(steps) if got != per_step]
     if len(steps) != TRAIN["steps"] or wrong:
-        raise AssertionError(f"train: kernel launches per step differ from {per_step}: {wrong[:3]}")
+        raise AssertionError(f"{phase}: kernel launches per step differ from {per_step}: {wrong[:3]}")
     log_rows = trainer.metrics_log
     losses = [m["loss"] for m in log_rows]
     norms = [m["grad_norm"] for m in log_rows]
     if not all(math.isfinite(x) for x in losses + norms) or not losses[-1] < losses[0]:
-        raise AssertionError(f"train: losses {losses}, grad norms {norms}: not all finite, or not falling")
+        raise AssertionError(f"{phase}: losses {losses}, grad norms {norms}: not all finite, or not falling")
     tokens = TRAIN["global_batch"] * TRAIN["seq_len"]
     step_ms = [1e3 * m["seconds"] for m in log_rows]
     stats = dict(model=cfg.name, layers=cfg.n_layers, params=sum(t.numel() for t in leaves(params)),
@@ -1116,23 +1305,27 @@ def train_phase(torch, card):
                  step_ms_after_first=sum(step_ms[1:]) / len(step_ms[1:]),
                  tok_per_s_after_first=tokens * len(step_ms[1:]) / (sum(step_ms[1:]) / 1e3),
                  wall_s=result["wall_s"], kernel_launches=final, launches_per_step=per_step,
-                 max_memory_allocated_bytes=peak, full_gc=full_gc.events, card=card)
-    log("train", json.dumps(stats))
-    final_host = {path: t.detach().cpu() for path, t in convert.flatten(params).items()}  # the ckpt phase's yardstick
+                 max_memory_allocated_bytes=peak, full_gc=full_gc.events, phase_wall_s=time.perf_counter() - t_phase,
+                 card=card)
+    log(phase, json.dumps(stats))
+    final_host = {path: t.detach().cpu() for path, t in convert.flatten(params).items()} if keep_final else None
     del trainer, params
     torch.cuda.empty_cache()
     return stats, final_host
 
 
 # The ckpt phase keeps its checkpoints on disk, in a PosixBackend data center under the checkout's build/, not in
-# the training launcher's in-memory one.  This phase's own numbers on the card's machine (the NVIDIA H100 80GB HBM3
+# the training launcher's in-memory one.  It runs gemma2-2b cut to 14 of its 26 layers, every width kept, against
+# a clean run of the same cut: the card's machine ends a command that writes more than 45 GiB to its disk, even
+# if the bytes are deleted again, and two saves of the full-depth state (2 x 24.75 GB, 46.1 GiB) pass that; two
+# of the cut's (2 x 16.59 GB, 30.9 GiB) do not.  The numbers below were read at full depth.  This phase's own numbers on the card's machine (the NVIDIA H100 80GB HBM3
 # host): MemTotal 108.4 GB, MemAvailable 93.2 GB when it starts, 80.2 GB free on the disk that holds the checkout
 # (and tempfile.gettempdir()), and a peak resident set of 77.5 GB with the checkpoints on disk (the state on the
 # host, a shard's bytes and their join, phase 9's parameters).  Held in RAM, the two checkpoints would add
 # 2 x 24.75 GB to that peak, and the in-memory store a third copy of the shard being written: well past MemTotal.
-CKPT = dict(ckpt_every=4, fail_at=6, n_shards=2)
+CKPT = dict(ckpt_every=4, fail_at=6, n_shards=2, n_layers=14)
 CKPT_DISK = 2.2       # free disk the phase asks for, in checkpoints of the state's size
-CKPT_PEAK_REL = 0.01  # the card's peak may exceed phase 9's by this share
+CKPT_PEAK_REL = 0.01  # the card's peak may exceed the clean run's by this share
 
 
 def host_memory() -> dict:
@@ -1146,8 +1339,9 @@ def host_memory() -> dict:
 
 
 def ckpt_phase(torch, card, train_stats, train_final):
-    """Phase 9's run again, checkpointed through SCISPACE every 4 steps, through an injected node failure before
-    step 7: one restore of step 4 (found by an SDS search) and a replay of steps 5-8, held against phase 9."""
+    """Phase 9's run cut to CKPT["n_layers"], checkpointed through SCISPACE every 4 steps, through an injected
+    node failure before step 7: one restore of step 4 (found by an SDS search) and a replay of steps 5-8, held
+    against ``train_stats`` / ``train_final``, a clean run of the same cut."""
     import shutil
     import tempfile
 
@@ -1174,7 +1368,7 @@ def ckpt_phase(torch, card, train_stats, train_final):
         ckpt = CheckpointManager(collab, run="chip-smoke", home_dc="pod0", n_shards=CKPT["n_shards"])
         torch.cuda.empty_cache()
         trainer = build_trainer("gemma2-2b", device="cuda", fault_hook=hook, ckpt=ckpt,
-                                ckpt_every=CKPT["ckpt_every"], **TRAIN)
+                                ckpt_every=CKPT["ckpt_every"], n_layers=CKPT["n_layers"], **TRAIN)
         state_bytes = sum(t.numel() * t.element_size() for t in leaves(trainer.state))
         disk_free = shutil.disk_usage(root).free
         if disk_free < CKPT_DISK * state_bytes:
@@ -1231,25 +1425,24 @@ def ckpt_phase(torch, card, train_stats, train_final):
         raise AssertionError(f"ckpt: ran steps {stats['steps']}, not 1-6 then 5-8 after the restore")
     wrong = [(i, got) for i, got in enumerate(steps) if got != per_step]
     if len(steps) != len(rows) or wrong:
-        raise AssertionError(f"ckpt: kernel launches per step differ from phase 9's {per_step}: {wrong[:3]}")
+        raise AssertionError(f"ckpt: kernel launches per step differ from the clean run's {per_step}: {wrong[:3]}")
     if not all(r <= LOSS_RTOL for r in loss_rel):
-        raise AssertionError(f"ckpt: losses {stats['losses']} against phase 9's {want} (rtol {LOSS_RTOL})")
+        raise AssertionError(f"ckpt: losses {stats['losses']} against the clean run's {want} (rtol {LOSS_RTOL})")
     if not all(math.isfinite(r) and r <= LOSS_RTOL for r in leaf_rel.values()):
-        raise AssertionError(f"ckpt: parameter leaf {worst} differs from phase 9's by {leaf_rel[worst]:.3e}")
+        raise AssertionError(f"ckpt: parameter leaf {worst} differs from the clean run's by {leaf_rel[worst]:.3e}")
     if peak > (1 + CKPT_PEAK_REL) * train_stats["max_memory_allocated_bytes"]:
-        raise AssertionError(f"ckpt: peak {peak} bytes against phase 9's {train_stats['max_memory_allocated_bytes']}")
+        raise AssertionError(f"ckpt: peak {peak} bytes against the clean run's "
+                             f"{train_stats['max_memory_allocated_bytes']}")
     return stats
 
 
-def train_check(torch, card):
-    """The card's loss and gradients against the CPU's (plain attention), f32, on the same weights and batch."""
+def train_check_cut(torch, card, cut, label):
+    """The card's loss and gradients against the CPU's (plain attention), f32, on the same weights and batch:
+    the loss within rtol 1e-5, every gradient leaf within ||card - cpu|| / ||cpu|| <= 1e-4."""
     from repro_torch import convert
-    from repro_torch.configs import get_config
     from repro_torch.data import ShardedPipeline, SyntheticLM
-    from repro_torch.launch.train import build_trainer
     from repro_torch.models import Model
 
-    cut = get_config("gemma2-2b").replace(n_layers=2, dtype="float32")  # one unit: a local and a global layer
     batch = ShardedPipeline(SyntheticLM(vocab_size=cut.vocab_size, seq_len=320, period=16, vocab_eff=256),
                             global_batch=1).batch_at(0)
     params_gpu = Model(cut, device="cuda").init(torch.Generator(device="cuda").manual_seed(3))
@@ -1267,15 +1460,28 @@ def train_check(torch, card):
     rel = {p: ((grads_g[p] - g).norm() / g.norm().clamp_min(1e-30)).item() for p, g in grads_c.items()}
     worst = max(rel, key=rel.get)
     log("train-check", json.dumps(dict(
-        cut=f"{cut.name} {cut.n_layers} layers f32, B1 S320, loss chunk 64", loss_card=loss_g, loss_cpu=loss_c,
+        cut=f"{label}, B1 S320, loss chunk 64", loss_card=loss_g, loss_cpu=loss_c,
         worst_leaf=worst, worst_rel_err=rel[worst], leaves=len(rel), loss_rtol=LOSS_RTOL,
-        grad_leaf_rel=GRAD_LEAF_REL, card=card)))
+        grad_leaf_rel=GRAD_LEAF_REL, head_rel_err={p: rel[p] for p in ("embed/table", "lm_head/table") if p in rel},
+        card=card)))
     if not abs(loss_g - loss_c) <= LOSS_RTOL * abs(loss_c):
-        raise AssertionError(f"train-check: loss on the card {loss_g} against {loss_c} on the CPU")
+        raise AssertionError(f"train-check {cut.name}: loss on the card {loss_g} against {loss_c} on the CPU")
     if not all(math.isfinite(r) and r <= GRAD_LEAF_REL for r in rel.values()):
-        raise AssertionError(f"train-check: gradient leaf {worst} differs by {rel[worst]:.3e} (relative)")
+        raise AssertionError(f"train-check {cut.name}: gradient leaf {worst} differs by {rel[worst]:.3e} (relative)")
     del out, grads_g, grads_c
     torch.cuda.empty_cache()
+
+
+def train_check(torch, card):
+    """Training, card against CPU: a full-width unit of gemma2-2b (a local and a global layer), a full-width
+    layer of codeqwen1.5-7b (an untied head), and 3 Trainer steps of gemma2's smoke model."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import build_trainer
+
+    cut = get_config("gemma2-2b").replace(n_layers=2, dtype="float32")  # one unit: a local and a global layer
+    train_check_cut(torch, card, cut, f"{cut.name} {cut.n_layers} layers f32")
+    cut = get_config("codeqwen1.5-7b").replace(n_layers=1, dtype="float32")
+    train_check_cut(torch, card, cut, f"{cut.name} {cut.n_layers} layer f32, untied head")
 
     # the CPU trainer starts from the card trainer's weights: the two generators draw different numbers
     trainers = {device: build_trainer("gemma2-2b", smoke=True, steps=3, device=device) for device in ("cuda", "cpu")}
@@ -1317,10 +1523,12 @@ def library_backward(torch, card, rows):
         del qh, kh, vh, out
 
 
-def backward_entries(rows, train_stats, ckpt_stats, card):
-    """The kernels line's entries of the backward kernels, at gemma2's training shape, window 4096."""
+def backward_entries(rows, train_stats, ckpt_stats, dense_train_stats, card):
+    """The kernels line's entries of the backward kernels, at gemma2's training shape, window 4096, and at
+    stablelm-3b's (hd 80)."""
     row = next(r for r in rows if r["label"] == "gemma2-train" and r["window"] == 4096)
     same = next(r for r in rows if r["label"] == "gemma2-train-causal")  # softcap 0: SDPA's own function
+    hd80 = next(r for r in rows if r["label"] == "stablelm-train")
     max_err = max(row["max_abs_err"][g] for g in ("dq", "dk", "dv"))
     return [dict(
         name=f"flash_attention_bwd_{kname}", route="cuda", source="src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
@@ -1334,7 +1542,13 @@ def backward_entries(rows, train_stats, ckpt_stats, card):
         backward_ms=row["backward_ms"], backward_bound_ms=row["bound_ms"]["backward"], tol=row["tol"],
         shape=row["case"], same_function_shape=same["case"], same_function_ms=same["kernel_ms"][kname],
         same_function_backward_ms=same["backward_ms"], same_function_library_ms=same["library_ms"],
-        same_function_library=same["library"], card=card) for kname in ("rowdot", "dkdv", "dq")]
+        same_function_library=same["library"],
+        launches_dense_train=dense_train_stats["kernel_launches"][f"flash_attention_bwd_{kname}"],
+        hd80_shape=hd80["case"], hd80_ms=hd80["kernel_ms"][kname], hd80_backward_ms=hd80["backward_ms"],
+        hd80_plain_ms=hd80["plain_ms"], hd80_bound_ms=hd80["bound_ms"][kname],
+        hd80_backward_bound_ms=hd80["bound_ms"]["backward"], hd80_library_ms=hd80["library_ms"],
+        hd80_max_abs_err={g: hd80["max_abs_err"][g] for g in ("dq", "dk", "dv")},
+        card=card) for kname in ("rowdot", "dkdv", "dq")]
 
 
 def main() -> int:
@@ -1371,7 +1585,9 @@ def main() -> int:
     scan_rows = run_mamba_cases(torch, card)
     mamba_planted_checks(torch, card, planted)
     bwd_rows = run_backward_cases(torch, card)
-    backward_planted_checks(torch, card, planted)
+    for shape in PLANTED_BWD_SHAPES:
+        backward_planted_checks(torch, card, planted, shape)
+    backward_planted_checks(torch, card, planted, PLANTED_BWD_GROUPED_HD80, names=("flash_bwd_first_head_only",))
     log("time", f"phases 1-3 done at {time.perf_counter() - t_start:.1f} s")
 
     # 4. serve at full width
@@ -1418,27 +1634,46 @@ def main() -> int:
                 f"{torch.cuda.memory_allocated()} bytes still allocated")
 
     # 9. gemma2-2b training at full width and depth
-    train_stats, train_final = train_phase(torch, card)
+    train_stats, _ = train_phase(torch, card)
     log("time", f"phase 9 done at {time.perf_counter() - t_start:.1f} s")
 
     # 10. the same training checkpointed through SCISPACE, through a failure and a restore
-    ckpt_stats = ckpt_phase(torch, card, train_stats, train_final)
-    del train_final
+    clean_stats, clean_final = train_phase(torch, card, phase="ckpt-clean", keep_final=True,
+                                           n_layers=CKPT["n_layers"])
+    ckpt_stats = ckpt_phase(torch, card, clean_stats, clean_final)
+    del clean_final
     log("time", f"phase 10 done at {time.perf_counter() - t_start:.1f} s")
 
     # 11. training, card against CPU
     train_check(torch, card)
     log("time", f"phase 11 done at {time.perf_counter() - t_start:.1f} s")
 
-    # 12. the backward's library yardstick, after every peak has been read
+    # 12. the four archs with an untied head, served at full width and depth
+    t_phase = time.perf_counter()
+    dense_stats = dense_phases(torch, card)
+    launcher_stats = launcher_serve(torch, card, "nemotron-4-15b")
+    log("time", f"phase 12 (dense) took {time.perf_counter() - t_phase:.1f} s, done at "
+                f"{time.perf_counter() - t_start:.1f} s; {torch.cuda.memory_allocated()} bytes still allocated")
+
+    # 13. stablelm-3b training at full width and depth
+    t_phase = time.perf_counter()
+    dense_train_stats, _ = train_phase(torch, card, arch="stablelm-3b", phase="dense-train")
+    log("time", f"phase 13 (dense-train) took {time.perf_counter() - t_phase:.1f} s, done at "
+                f"{time.perf_counter() - t_start:.1f} s")
+
+    # 14. the backward's library yardstick, after every peak has been read
     library_backward(torch, card, bwd_rows)
-    log("time", f"phase 12 done at {time.perf_counter() - t_start:.1f} s")
+    log("time", f"phase 14 done at {time.perf_counter() - t_start:.1f} s")
 
     main_row = next(r for r in rows if r["case"].startswith("gemma2-serve-long bfloat16")
                     and r["window"] == 4096)
     jamba_row = next(r for r in rows if r["case"].startswith("jamba-serve-long bfloat16"))
     wkv_row = next(r for r in wkv_rows if r["case"] == "rwkv6 bfloat16 B1 S4096 H64 C64 s0 zero")
     scan_row = next(r for r in scan_rows if r["case"] == "jamba float32 B1 S4096 di8192 ds16 h0 zero")
+    dense_rows = {label: next(r for r in rows if r["case"].startswith(f"{label} bfloat16 B1 S4096 "))
+                  for label, _, _ in DENSE_ATTENTION}
+    dense_keys = ("case", "max_abs_err", "kernel_ms", "plain_ms", "bound_ms", "library_ms", "library_causal_ms",
+                  "tflops")
     kernels = [dict(
         name="flash_attention", route="cuda", source="src/repro_torch/kernels/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention.py:126", launches=stats["kernel_launches"]["flash_attention"],
@@ -1453,8 +1688,16 @@ def main() -> int:
         jamba_library_causal_ms=jamba_row["library_causal_ms"], jamba_plain_ms=jamba_row["plain_ms"],
         jamba_bound_ms=jamba_row["bound_ms"], jamba_tflops=jamba_row["tflops"],
         jamba_max_abs_err=jamba_row["max_abs_err"], launches_train=train_stats["kernel_launches"]["flash_attention"],
-        launches_ckpt=ckpt_stats["kernel_launches"]["flash_attention"], card=card,
-    ), *backward_entries(bwd_rows, train_stats, ckpt_stats, card), dict(
+        launches_ckpt=ckpt_stats["kernel_launches"]["flash_attention"],
+        launches_dense={arch: st["serve"]["kernel_launches"]["flash_attention_wgmma"]
+                        for arch, st in dense_stats.items()},
+        launches_dense_long={arch: st["long"]["kernel_launches"]["flash_attention_wgmma"]
+                             for arch, st in dense_stats.items()},
+        launches_dense_train=dense_train_stats["kernel_launches"]["flash_attention"],
+        launches_launcher_nemotron=launcher_stats["kernel_launches"]["flash_attention_wgmma"],
+        dense_long_shapes={label: {key: r[key] for key in dense_keys} for label, r in dense_rows.items()},
+        card=card,
+    ), *backward_entries(bwd_rows, train_stats, ckpt_stats, dense_train_stats, card), dict(
         name="wkv6", route="cuda", source="src/repro_torch/kernels/csrc/wkv6.cu",
         replaces="src/repro/kernels/rwkv6_scan.py:96", launches=rwkv_stats["kernel_launches"]["wkv6"],
         max_abs_err=wkv_row["max_abs_err"], ms=wkv_row["kernel_ms"], plain_ms=wkv_row["plain_ms"],

@@ -15,6 +15,15 @@ purpose; the backward counts dq, dk and dv apart) and timed with CUDA events
 committed.  It prints one JSON line per build with ptxas' registers and spills
 of each tensor-core kernel, then one JSON line per shape and build, then the
 card's ``nvidia-smi`` line.  Needs a CUDA card; imports nothing of JAX.
+
+    python3 scripts/flash_variants.py --padding
+
+prices the backward's head-dim padding alone (no variant is built): bf16 pads
+hd to whole 64-column boxes, so stablelm-3b's hd 80 runs 128 columns.  At its
+training shape (B4 S=T=2048 H32 Kv32, causal, softcap 0) and at hd 64, 80 and
+128 it prints one JSON line each: the committed kernels' CUDA-event times, the
+whole call's, the elements outside ``chip_smoke.py``'s gate, and SDPA's
+backward through autograd (``is_causal``) on the same inputs.
 """
 
 from __future__ import annotations
@@ -124,6 +133,8 @@ SHAPES = [("gemma2-serve-long", 1, 4608, 8, 4, 256, 4096, 50.0),
           ("gemma2-serve-long", 1, 4608, 8, 4, 256, 0, 50.0),
           ("jamba-serve-long", 1, 4096, 32, 8, 128, 0, 0.0),
           ("gemma2-ragged", 1, 4600, 8, 4, 256, 4096, 50.0)]
+# B, S, H, Kv: stablelm-3b's training shape, priced at the head dims around its 80
+PADDING_SHAPE, PADDING_HDS = (4, 2048, 32, 32), (64, 80, 128)
 # label, B, S, H, Kv, hd, window, softcap: chip_smoke.py's backward cases at the training shape and its long one
 BWD_SHAPES = [("gemma2-train", 4, 2048, 8, 4, 256, 4096, 50.0),
               ("gemma2-train-causal", 4, 2048, 8, 4, 256, 0, 0.0),
@@ -141,6 +152,11 @@ def main() -> int:
     import repro_torch.kernels.flash_attention as fa
     from repro_torch.kernels import _build
 
+    if "--padding" in sys.argv[1:]:
+        card = cs.smi_line()
+        padding_prices(torch, cs, fa, card)
+        print(card)
+        return 0
     copies = cs.planted_sources({**VARIANTS, **BWD_VARIANTS}, "variants")
     with ThreadPoolExecutor(max_workers=len(copies)) as pool:
         logs = dict(zip(copies, pool.map(lambda copy: _build.compile_source(*copy), copies.values())))
@@ -176,6 +192,38 @@ def main() -> int:
     backward_variants(torch, cs, fa, copies, card)
     print(card)
     return 0
+
+
+def padding_prices(torch, cs, fa, card):
+    """The committed backward at PADDING_SHAPE for each of PADDING_HDS, beside SDPA's backward."""
+    import math
+
+    import torch.nn.functional as F
+
+    B, S, H, Kv = PADDING_SHAPE
+    kw = dict(causal=True, window=0, logit_softcap=0.0)
+    for seed, hd in enumerate(PADDING_HDS, start=700):
+        q, k, v, do = cs.backward_inputs(torch, "bfloat16", B, S, H, Kv, hd, 1.0, seed)
+        o, lse = fa.flash_attention_with_lse(q, k, v, **kw)
+        grads = fa.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+        plain = fa.flash_attention_bwd_plain(q, k, v, o, lse, do, **kw)
+        outside = {g: cs.n_outside(got, want, cs.grad_tol("bfloat16", want))
+                   for g, got, want in zip(("dq", "dk", "dv"), grads, plain)}
+        del grads, plain
+        launches, _ = fa.backward_launches(q, k, v, o, lse, do, **kw)
+        row = dict(shape=f"backward bf16 B{B} S=T={S} H{H} Kv{Kv} hd{hd} causal cap0",
+                   padded_hd=fa.backward_geometry(q.dtype, hd).hd, outside_tol=outside,
+                   kernel_ms={kname: cs.cuda_ms(torch, launch) for kname, launch in launches},
+                   backward_ms=cs.cuda_ms(torch, lambda: fa.flash_attention_bwd(q, k, v, o, lse, do, **kw)))
+        row["kernels_ms"] = sum(row["kernel_ms"].values())
+        qh, kh, vh = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
+        out = F.scaled_dot_product_attention(qh, kh, vh, is_causal=True, scale=1.0 / math.sqrt(hd))
+        doh = do.transpose(1, 2)
+        row["library_ms"] = cs.cuda_ms(torch, lambda: torch.autograd.grad(out, (qh, kh, vh), doh, retain_graph=True),
+                                       max_reps=10)
+        row.update(library="sdpa backward (autograd), is_causal", card=card)
+        print(json.dumps(row), flush=True)
+        del qh, kh, vh, out
 
 
 def ptxas_report(log: str) -> dict:

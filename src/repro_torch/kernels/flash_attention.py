@@ -56,9 +56,10 @@ _BIG_NEG = -1e30
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_HEAD_DIM = 256
 # (B, L, heads, hd, rows) the tensor maps are held to when a library is bound: B2 with
-# ragged S, gemma2's and jamba's long prompts (q and K/V tiles), stablelm's hd 80, hd 8
+# ragged S, gemma2's and jamba's long prompts (q and K/V tiles), stablelm's hd 80, hd 8,
+# nemotron's 48 query heads
 _MAP_CHECKS = ((2, 300, 8, 256, 128), (1, 4608, 4, 256, 64), (1, 4096, 32, 128, 128),
-               (1, 4096, 8, 128, 128), (1, 23, 32, 80, 128), (3, 17, 2, 8, 128))
+               (1, 4096, 8, 128, 128), (1, 23, 32, 80, 128), (3, 17, 2, 8, 128), (1, 4096, 48, 128, 128))
 
 
 @dataclasses.dataclass(frozen=True)

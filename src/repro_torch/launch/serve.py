@@ -4,11 +4,16 @@ Counterpart of ``src/repro/launch/serve.py``.  Builds the model from a seeded
 ``torch.Generator``, boots the continuous-batching engine and serves a
 synthetic request stream (numpy-seeded prompts of 4–23 tokens), printing the
 throughput stats as JSON.  Runs on the card unless ``--device cpu`` is given.
-On the card it first works out, from a ``meta`` init that draws nothing,
-the bytes the weights will take, and refuses before building or drawing
-anything when they exceed the card's free memory: jamba-v0.1-52b at full
-depth (51.3 B parameters, 102.6 GB even in bf16) does not fit one H100, and
-``chip_smoke.py`` serves it cut in depth through ``Model`` and ``ServeEngine``.
+The weights are held in the compute dtype only: each leaf is drawn in f32
+and stored as the engine casts it (``Model.init(..., compute_weights=True)``),
+bitwise the weights of f32 masters cast at use, so nemotron-4-15b (15.6 B
+parameters, 31.3 GB in bf16) serves at full width on one 80 GB card.  On the
+card it first works out, from a ``meta`` init that draws nothing, the bytes
+the draw will hold at its peak (the weights, plus the f32 draw of the largest
+leaf), and refuses before building or drawing anything when they exceed the
+card's free memory: jamba-v0.1-52b at full depth (51.3 B
+parameters, 102.6 GB in bf16) does not fit one H100, and ``chip_smoke.py``
+serves it cut in depth through ``Model`` and ``ServeEngine``.
 ``--profile DIR`` traces the serving run with ``torch.profiler`` and writes
 ``DIR/trace.json.gz`` (Chrome trace) and ``DIR/ops.txt`` (op tables by device
 and by host time); the stats then
@@ -19,6 +24,7 @@ Example:
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-2b --smoke --device cpu \
         --requests 8 --max-new 16
     PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-7b     # full width, on the card
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch nemotron-4-15b
 """
 
 from __future__ import annotations
@@ -38,34 +44,46 @@ from repro_torch.convert import flatten
 from repro_torch.device import resolve_device
 from repro_torch.kernels._build import build_all
 from repro_torch.models import Model
-from repro_torch.models.layers import cast_for_compute
 from repro_torch.models.transformer import count_params, init_lm
 from repro_torch.serve import ServeConfig, ServeEngine
 
 
+def _meta_leaves(cfg):
+    return flatten(init_lm(cfg, None, "meta", compute_weights=True)).values()
+
+
 def weight_bytes(cfg) -> int:
-    """Bytes of the served weights at their peak, from a ``meta`` init (nothing drawn):
-    the master weights in ``cfg.param_dtype`` plus the compute-dtype copy that the
-    engine makes of every leaf it casts (none for a leaf already in that dtype)."""
-    master = init_lm(cfg, None, "meta")
-    cast = flatten(cast_for_compute(master, getattr(torch, cfg.dtype)))
-    master = flatten(master)
-    return sum(t.numel() * t.element_size() for p, t in master.items()) + sum(
-        t.numel() * t.element_size() for p, t in cast.items() if t is not master[p])
+    """Bytes of the served weights, from a ``meta`` init (nothing drawn): every weight that is
+    cast at use in the compute dtype, the rest (norm scales, the MoE router, the scans' own
+    leaves) in ``cfg.param_dtype``, as :func:`main` draws them."""
+    return sum(t.numel() * t.element_size() for t in _meta_leaves(cfg))
+
+
+def _block_bytes(nbytes: int) -> int:
+    """The most the CUDA caching allocator counts for one tensor of ``nbytes``: the request rounded up
+    to 512 bytes, and a remainder of up to 1 MiB that it may leave unsplit in the tensor's block."""
+    return -(-nbytes // 512) * 512 + (1 << 20)
+
+
+def draw_peak_bytes(cfg) -> int:
+    """Most bytes the draw holds at once: the weights, plus the f32 draw of the largest leaf that is
+    stored narrower (drawn in f32, cast, then freed; its cast copy is among the weights), each tensor
+    counted as the caching allocator may count it."""
+    leaves = list(_meta_leaves(cfg))
+    transient = max((4 * t.numel() for t in leaves if t.element_size() < 4), default=0)
+    return sum(_block_bytes(t.numel() * t.element_size()) for t in leaves) + _block_bytes(transient)
 
 
 def check_fits(cfg, free_bytes: int) -> None:
-    """Raise before anything is drawn when the weights need more than ``free_bytes``."""
-    need = weight_bytes(cfg)
+    """Raise before anything is drawn when the draw needs more than ``free_bytes`` at its peak."""
+    need = draw_peak_bytes(cfg)
     if need <= free_bytes:
         return
     n = count_params(init_lm(cfg, None, "meta"))
-    lean = weight_bytes(cfg.replace(param_dtype=cfg.dtype))
     raise RuntimeError(
-        f"{cfg.name} ({cfg.n_layers} layers, {n} parameters) needs {need / 1e9:.1f} GB of weights "
-        f"({cfg.param_dtype} master weights and their {cfg.dtype} copy; {lean / 1e9:.1f} GB with "
-        f"{cfg.dtype} master weights), more than the {free_bytes / 1e9:.1f} GB free on the card; "
-        f"nothing was drawn. Serve a depth cut through Model and ServeEngine, as chip_smoke.py does."
+        f"{cfg.name} ({cfg.n_layers} layers, {n} parameters) needs {need / 1e9:.1f} GB to draw its weights "
+        f"({weight_bytes(cfg) / 1e9:.1f} GB held in {cfg.dtype}), more than the {free_bytes / 1e9:.1f} GB free "
+        f"on the card; nothing was drawn. Serve a depth cut through Model and ServeEngine, as chip_smoke.py does."
     )
 
 
@@ -94,7 +112,13 @@ def main(argv=None) -> int:
         build_all()
         build_s = time.perf_counter() - t0
     model = Model(cfg, device=device)
-    params = model.init(torch.Generator(device=device).manual_seed(args.seed))
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    params = model.init(torch.Generator(device=device).manual_seed(args.seed), compute_weights=True)
+    held = {"params": model.count_params(params),
+            "weight_bytes": sum(t.numel() * t.element_size() for t in flatten(params).values())}
+    if device.type == "cuda":
+        held["draw_peak_bytes"] = torch.cuda.max_memory_allocated(device)
     eng = ServeEngine(
         model,
         params,
@@ -104,7 +128,7 @@ def main(argv=None) -> int:
         ),
         device=device,
     )
-    del params  # the engine keeps the compute-dtype copy
+    del params  # the engine holds the same tensors
     rng = np.random.default_rng(args.seed)
     reqs = [
         eng.submit(rng.integers(0, cfg.vocab_size, size=int(rng.integers(4, 24))), args.max_new)
@@ -116,7 +140,7 @@ def main(argv=None) -> int:
         stats.update(_write_profile(prof, Path(args.profile), stats["wall_s"], device))
     if not all(r.done for r in reqs):
         raise RuntimeError("engine stopped with requests still pending")
-    stats["kernel_build_s"] = build_s
+    stats.update(held, kernel_build_s=build_s)
     stats["device"] = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
     print(json.dumps(stats, indent=1))
     return 0

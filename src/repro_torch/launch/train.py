@@ -49,13 +49,16 @@ __all__ = ["build_trainer", "main"]
 def build_trainer(arch: str, *, smoke: bool = False, steps: int = 50, seq_len: int = 128, global_batch: int = 8,
                   microbatches: int = 1, lr: float = 3e-3, seed: int = 0, device="cuda",
                   fault_hook: Optional[Callable[[int], None]] = None, ckpt: Optional[CheckpointManager] = None,
-                  ckpt_every: int = 0) -> Trainer:
+                  ckpt_every: int = 0, n_layers: Optional[int] = None) -> Trainer:
     """The launcher's trainer: the reference's schedule (warmup steps // 10) and data
     (``SyntheticLM(period=16, vocab_eff=256)``), loss chunk min(seq_len, 256); with ``ckpt``, a save
-    every ``ckpt_every`` steps and a restore on a node failure."""
+    every ``ckpt_every`` steps and a restore on a node failure; ``n_layers`` cuts the depth, every
+    width kept."""
     cfg = get_config(arch)
     if smoke:
         cfg = smoke_variant(cfg)
+    if n_layers is not None:
+        cfg = cfg.replace(n_layers=n_layers)
     model = Model(cfg, device=resolve_device(device))
     opt = AdamW(AdamWConfig(peak_lr=lr, warmup_steps=max(steps // 10, 1), total_steps=steps))
     pipe = ShardedPipeline(SyntheticLM(vocab_size=cfg.vocab_size, seq_len=seq_len, period=16, vocab_eff=256),

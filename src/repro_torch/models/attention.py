@@ -37,7 +37,8 @@ def init_attention(init: Init, cfg) -> Params:
         "wq": init_dense(init, cfg.d_model, (cfg.n_heads, hd), bias=cfg.qkv_bias),
         "wk": init_dense(init, cfg.d_model, (cfg.n_kv_heads, hd), bias=cfg.qkv_bias),
         "wv": init_dense(init, cfg.d_model, (cfg.n_kv_heads, hd), bias=cfg.qkv_bias),
-        "wo": {"w": init.normal((cfg.n_heads, hd, cfg.d_model), 1.0 / math.sqrt(cfg.n_heads * hd))},
+        "wo": {"w": init.normal((cfg.n_heads, hd, cfg.d_model), 1.0 / math.sqrt(cfg.n_heads * hd),
+                                leaf="w")},
     }
     if cfg.qk_norm:
         p["q_norm"] = init_norm(init, "rmsnorm", hd)

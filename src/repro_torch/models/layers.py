@@ -44,29 +44,49 @@ class Init:
     ``lead`` is prepended to every shape: unit parameters carry the leading
     ``n_units`` dimension that the reference gets from ``vmap``.  On the
     ``meta`` device nothing is drawn or allocated (shapes only).
+
+    With ``compute_dtype`` set, a leaf that :func:`cast_for_compute` casts
+    (by its ``leaf`` name and the subtrees it lies ``within``, read against
+    the same ``_COMPUTE_LEAVES`` / ``_F32_SUBTREES``) is stored in the compute
+    dtype straight from its f32 draw, and no master copy is kept: the same
+    bits as drawing the master and casting it, leaf by leaf, at a fraction of
+    the memory.
     """
 
     def __init__(self, generator: Optional[torch.Generator], device, param_dtype: torch.dtype,
-                 lead: Tuple[int, ...] = ()):
+                 lead: Tuple[int, ...] = (), compute_dtype: Optional[torch.dtype] = None,
+                 subtrees: Tuple[str, ...] = ()):
         self.generator = generator
         self.device = torch.device(device)
         self.param_dtype = param_dtype
         self.lead = tuple(lead)
+        self.compute_dtype = compute_dtype
+        self.subtrees = tuple(subtrees)
 
     def stacked(self, n: int) -> "Init":
-        return Init(self.generator, self.device, self.param_dtype, self.lead + (n,))
+        return Init(self.generator, self.device, self.param_dtype, self.lead + (n,), self.compute_dtype,
+                    self.subtrees)
 
-    def normal(self, shape: Tuple[int, ...], std: float) -> torch.Tensor:
+    def within(self, name: str) -> "Init":
+        """This draw for the leaves of the subtree ``name`` (``router``: kept in ``param_dtype``)."""
+        return Init(self.generator, self.device, self.param_dtype, self.lead, self.compute_dtype,
+                    self.subtrees + (name,))
+
+    def _dtype(self, leaf: str) -> torch.dtype:
+        cast = leaf in _COMPUTE_LEAVES and not set(self.subtrees) & set(_F32_SUBTREES)
+        return self.compute_dtype if cast and self.compute_dtype is not None else self.param_dtype
+
+    def normal(self, shape: Tuple[int, ...], std: float, *, leaf: str) -> torch.Tensor:
         """N(0, std²) drawn in f32 and cast, as the reference draws every leaf.
 
         The draw is scaled in place, so one f32 leaf is alive at a time: with
-        bf16 parameters the peak is the weights plus the largest leaf in f32.
+        bf16 leaves the peak is the weights plus the largest leaf in f32.
         """
         shape = self.lead + tuple(shape)
         if self.device.type == "meta":
-            return torch.empty(shape, dtype=self.param_dtype, device="meta")
+            return torch.empty(shape, dtype=self._dtype(leaf), device="meta")
         w = torch.randn(shape, generator=self.generator, device=self.device, dtype=torch.float32)
-        return w.mul_(std).to(self.param_dtype)
+        return w.mul_(std).to(self._dtype(leaf))
 
     def uniform(self, shape: Tuple[int, ...], low: float, high: float) -> torch.Tensor:
         """U(low, high) drawn in f32, left in f32 for the caller to transform and cast."""
@@ -76,8 +96,8 @@ class Init:
         w = torch.rand(shape, generator=self.generator, device=self.device, dtype=torch.float32)
         return w.mul_(high - low).add_(low)
 
-    def fill(self, shape: Tuple[int, ...], value: float) -> torch.Tensor:
-        return torch.full(self.lead + tuple(shape), value, dtype=self.param_dtype, device=self.device)
+    def fill(self, shape: Tuple[int, ...], value: float, *, leaf: str) -> torch.Tensor:
+        return torch.full(self.lead + tuple(shape), value, dtype=self._dtype(leaf), device=self.device)
 
     def constant(self, value: torch.Tensor) -> torch.Tensor:
         """``value``, the same in every stacked unit, in the parameter dtype."""
@@ -95,9 +115,9 @@ class Init:
 def init_dense(init: Init, in_dim: int, out_shape: Tuple[int, ...], *, bias: bool = False,
                scale: Optional[float] = None) -> Params:
     std = scale if scale is not None else 1.0 / in_dim ** 0.5
-    p: Params = {"w": init.normal((in_dim, *out_shape), std)}
+    p: Params = {"w": init.normal((in_dim, *out_shape), std, leaf="w")}
     if bias:
-        p["b"] = init.fill(out_shape, 0.0)
+        p["b"] = init.fill(out_shape, 0.0, leaf="b")
     return p
 
 
@@ -116,9 +136,9 @@ def dense(p: Params, x: torch.Tensor, *, dtype: torch.dtype) -> torch.Tensor:
 
 
 def init_norm(init: Init, kind: str, dim: int) -> Params:
-    p: Params = {"scale": init.fill((dim,), 1.0)}
+    p: Params = {"scale": init.fill((dim,), 1.0, leaf="scale")}
     if kind == "layernorm":
-        p["bias"] = init.fill((dim,), 0.0)
+        p["bias"] = init.fill((dim,), 0.0, leaf="bias")
     return p
 
 
@@ -143,7 +163,7 @@ def norm(p: Params, x: torch.Tensor, *, kind: str, eps: float = 1e-6) -> torch.T
 
 
 def init_embedding(init: Init, vocab: int, dim: int) -> Params:
-    return {"table": init.normal((vocab, dim), 0.02)}
+    return {"table": init.normal((vocab, dim), 0.02, leaf="table")}
 
 
 def embed(p: Params, tokens: torch.Tensor, *, dtype: torch.dtype) -> torch.Tensor:
@@ -151,7 +171,8 @@ def embed(p: Params, tokens: torch.Tensor, *, dtype: torch.dtype) -> torch.Tenso
 
 
 def unembed(p: Params, x: torch.Tensor, *, dtype: torch.dtype) -> torch.Tensor:
-    """Project activations back to vocab logits (tied head)."""
+    """Project activations back to vocab logits through a ``[V, D]`` table: the
+    embedding's (tied head) or ``lm_head``'s (untied)."""
     return torch.matmul(x.to(dtype), p["table"].to(dtype).t())
 
 

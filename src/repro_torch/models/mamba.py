@@ -51,12 +51,12 @@ def init_mamba(init: Init, cfg) -> Params:
     dt_bias = torch.log(torch.expm1(dt))
     return {
         "in_proj": init_dense(init, cfg.d_model, (2 * di,)),
-        "conv_w": init.normal((m.d_conv, di), 1.0 / math.sqrt(m.d_conv)),
-        "conv_b": init.fill((di,), 0.0),
+        "conv_w": init.normal((m.d_conv, di), 1.0 / math.sqrt(m.d_conv), leaf="conv_w"),
+        "conv_b": init.fill((di,), 0.0, leaf="conv_b"),
         "x_proj": init_dense(init, di, (dr + 2 * ds,)),
         "dt_proj": init_dense(init, dr, (di,), bias=True),
         "A_log": init.constant(torch.log(a)),
-        "D": init.fill((di,), 1.0),
+        "D": init.fill((di,), 1.0, leaf="D"),
         "out_proj": init_dense(init, di, (cfg.d_model,)),
         "dt_bias": dt_bias.to(init.param_dtype),
     }

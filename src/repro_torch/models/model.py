@@ -28,11 +28,16 @@ class Model:
         self.cfg = cfg
         self.device = resolve_device(device)
 
-    def init(self, generator: torch.Generator):
-        """Random master weights in ``cfg.param_dtype`` on this model's device, drawn from ``generator``."""
+    def init(self, generator: torch.Generator, *, compute_weights: bool = False):
+        """Random master weights in ``cfg.param_dtype`` on this model's device, drawn from ``generator``.
+
+        With ``compute_weights`` every weight that is cast at use is stored in the
+        compute dtype straight from its draw: bitwise ``cast_for_compute(init(generator))``
+        with no master copy held, which is what serving needs.
+        """
         if generator.device.type != self.device.type:
             raise ValueError(f"generator is on {generator.device}, the model on {self.device}")
-        return transformer.init_lm(self.cfg, generator, self.device)
+        return transformer.init_lm(self.cfg, generator, self.device, compute_weights=compute_weights)
 
     def cast_for_compute(self, params):
         """The weights cast to the compute dtype once, as every use would cast them."""

@@ -40,10 +40,10 @@ def init_moe(init: Init, cfg) -> Params:
     spec = cfg.moe
     d, f, e = cfg.d_model, spec.d_ff, spec.n_experts
     return {
-        "router": init_dense(init, d, (e,)),
-        "w_gate": {"w": init.normal((e, d, f), 1.0 / math.sqrt(d))},
-        "w_up": {"w": init.normal((e, d, f), 1.0 / math.sqrt(d))},
-        "w_down": {"w": init.normal((e, f, d), 1.0 / math.sqrt(f))},
+        "router": init_dense(init.within("router"), d, (e,)),
+        "w_gate": {"w": init.normal((e, d, f), 1.0 / math.sqrt(d), leaf="w")},
+        "w_up": {"w": init.normal((e, d, f), 1.0 / math.sqrt(d), leaf="w")},
+        "w_down": {"w": init.normal((e, f, d), 1.0 / math.sqrt(f), leaf="w")},
     }
 
 

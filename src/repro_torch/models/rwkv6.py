@@ -53,7 +53,7 @@ def init_rwkv_tmix(init: Init, cfg) -> Params:
     H, C = _heads(cfg)
     rank = min(_LORA_RANK, D)
     return {
-        "mu": init.fill((5, D), 0.5),  # r, k, v, g, w
+        "mu": init.fill((5, D), 0.5, leaf="mu"),  # r, k, v, g, w
         "w_r": init_dense(init, D, (D,)),
         "w_k": init_dense(init, D, (D,)),
         "w_v": init_dense(init, D, (D,)),
@@ -62,9 +62,9 @@ def init_rwkv_tmix(init: Init, cfg) -> Params:
         "decay_base": init.constant(decay_base(D)),
         "decay_lora_a": init_dense(init, D, (rank,)),
         "decay_lora_b": init_dense(init, rank, (D,), scale=0.01),
-        "bonus": init.normal((H, C), 0.1),
-        "gn_scale": init.fill((D,), 1.0),
-        "gn_bias": init.fill((D,), 0.0),
+        "bonus": init.normal((H, C), 0.1, leaf="bonus"),
+        "gn_scale": init.fill((D,), 1.0, leaf="gn_scale"),
+        "gn_bias": init.fill((D,), 0.0, leaf="gn_bias"),
     }
 
 
@@ -117,7 +117,7 @@ def rwkv_tmix(p: Params, x: torch.Tensor, cfg, *, dtype, state: Optional[Dict] =
 def init_rwkv_cmix(init: Init, cfg) -> Params:
     D, F_ = cfg.d_model, cfg.d_ff
     return {
-        "mu": init.fill((2, D), 0.5),  # k, r
+        "mu": init.fill((2, D), 0.5, leaf="mu"),  # k, r
         "w_k": init_dense(init, D, (F_,)),
         "w_v": init_dense(init, F_, (D,)),
         "w_r": init_dense(init, D, (D,)),

@@ -6,7 +6,9 @@ dimension, as in the reference, and the reference's ``lax.scan`` over units is
 a Python loop here.  Ported: ``init_lm``, ``_embed_inputs``, ``_logits``,
 ``init_decode_cache``, ``decode_step``, ``prefill`` and ``count_params`` for
 every mixer (attention, Mamba-1, RWKV-6 time-mix) and every FFN (dense, MoE,
-RWKV-6 channel-mix) of the decoder-only family: gemma2, rwkv6 and jamba.
+RWKV-6 channel-mix) of the decoder-only family, with a tied or an untied
+(``lm_head``) output head: gemma2, rwkv6, jamba, codeqwen, stablelm,
+nemotron and olmoe.
 Caches are updated in place: attention writes its new key/value rows, rwkv
 and mamba layers copy their new states and carries over the old ones.
 
@@ -19,8 +21,9 @@ decode writes slot ``pos % T``; here position p always sits at slot ``p % T``
 (ROADMAP.md queue 3).
 
 Training (``lm_hidden``, ``train_loss``) is ported for stacks of attention
-layers with dense FFNs, the gemma2 family; the f32 master weights stay the
-autograd leaves and every use casts them, so gradients run through the casts.
+layers with dense FFNs (gemma2, codeqwen, stablelm, nemotron); the f32
+master weights stay the autograd leaves and every use casts them, so
+gradients run through the casts.
 ``remat="unit"`` recomputes each unit in the backward
 (``torch.utils.checkpoint``, non-reentrant: only the unit's inputs are saved).
 """
@@ -86,22 +89,25 @@ def _init_layer(init: Init, cfg, spec) -> Params:
     return p
 
 
-def init_lm(cfg, generator, device) -> Params:
+def init_lm(cfg, generator, device, *, compute_weights: bool = False) -> Params:
     """Random parameters with the reference's shapes and distributions.
 
-    Dense weights are normal·1/√fan_in, embeddings normal·0.02, the attention
-    output projection normal/√(H·hd), norm scales ones; the rwkv, mamba and
-    moe leaves follow ``init_rwkv_tmix`` / ``init_rwkv_cmix``, ``init_mamba``
-    and ``init_moe``.  Every leaf is drawn in f32 and stored in
-    ``cfg.param_dtype``, one leaf at a time.  ``device="meta"`` gives the
-    shapes without drawing or allocating anything.
+    Dense weights are normal·1/√fan_in, embeddings and the untied output head
+    (``lm_head``, when ``cfg.tie_embeddings`` is false) normal·0.02, the
+    attention output projection normal/√(H·hd), norm scales ones; the rwkv,
+    mamba and moe leaves follow ``init_rwkv_tmix`` / ``init_rwkv_cmix``,
+    ``init_mamba`` and ``init_moe``.  Every leaf is drawn in f32 and stored in
+    ``cfg.param_dtype``, one leaf at a time; with ``compute_weights`` a leaf
+    that is cast at use is stored in the compute dtype instead, so the tree is
+    bitwise :func:`~repro_torch.models.layers.cast_for_compute` of the master
+    weights without them ever being held.  ``device="meta"`` gives the shapes
+    without drawing or allocating anything.
     """
-    if cfg.tie_embeddings is False:
-        raise NotImplementedError(
-            f"{cfg.name}: untied output heads are not ported yet (ROADMAP.md queue 1, item 2)")
-    init = Init(generator, device, _pdtype(cfg))
+    init = Init(generator, device, _pdtype(cfg), compute_dtype=_dtype(cfg) if compute_weights else None)
     params: Params = {"embed": init_embedding(init, cfg.vocab_size, cfg.d_model)}
     params["final_norm"] = init_norm(init, cfg.norm, cfg.d_model)
+    if not cfg.tie_embeddings:
+        params["lm_head"] = init_embedding(init, cfg.vocab_size, cfg.d_model)
     unit_init = init.stacked(cfg.n_units)
     params["units"] = {f"pos{i}": _init_layer(unit_init, cfg, spec) for i, spec in enumerate(cfg.pattern)}
     return params
@@ -130,8 +136,13 @@ def _embed_inputs(params, batch: Dict[str, torch.Tensor], cfg) -> torch.Tensor:
     return x
 
 
+def _head_name(cfg) -> str:
+    """The output head's leaf: the embedding when tied, ``lm_head`` otherwise."""
+    return "embed" if cfg.tie_embeddings else "lm_head"
+
+
 def _logits(params, x: torch.Tensor, cfg) -> torch.Tensor:
-    logits = unembed(params["embed"], x, dtype=_dtype(cfg))
+    logits = unembed(params[_head_name(cfg)], x, dtype=_dtype(cfg))
     return softcap(logits, cfg.final_softcap)
 
 
@@ -239,8 +250,9 @@ def _chunk_nll(head, x: torch.Tensor, targets: torch.Tensor, cfg) -> torch.Tenso
 def train_loss(params, batch: Dict[str, torch.Tensor], cfg, *, loss_chunk: int = 256):
     """Causal LM cross-entropy, sequence-chunked so [B, S, V] never exists.  Returns (loss, metrics).
 
-    The tied head is cast to the compute dtype once per call, not per chunk:
-    the same values as a cast at each use, with one copy held for the backward.
+    The output head (the embedding when tied, ``lm_head`` otherwise) is cast to
+    the compute dtype once per call, not per chunk: the same values as a cast
+    at each use, with one copy held for the backward.
     """
     x, aux = lm_hidden(params, batch, cfg)
     targets = batch["targets"]
@@ -248,7 +260,8 @@ def train_loss(params, batch: Dict[str, torch.Tensor], cfg, *, loss_chunk: int =
     c = min(loss_chunk, S)
     if S % c:
         raise ValueError(f"seq_len {S} is not a multiple of the loss chunk {c}")
-    head = {"embed": {"table": params["embed"]["table"].to(_dtype(cfg))}}
+    name = _head_name(cfg)
+    head = {name: {"table": params[name]["table"].to(_dtype(cfg))}}
     total = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(S // c):
         xx, tt = x[:, i * c:(i + 1) * c], targets[:, i * c:(i + 1) * c]

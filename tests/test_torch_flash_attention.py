@@ -48,6 +48,8 @@ CASES = {
     "q-offset": (1, 16, 48, 4, 2, 16, True, 24, 50.0, 32, 16, 16),
     # stablelm-3b's head dim: 80 is no multiple of 64, so the kernel's last column box is partial
     "stablelm-hd80": (1, 32, 32, 4, 4, 80, True, 0, 0.0, 0, 16, 16),
+    # nemotron-4-15b's GQA 48/8: six query heads share a KV head, a group size that is no power of two
+    "nemotron-gqa6": (1, 32, 32, 48, 8, 128, True, 0, 0.0, 0, 16, 16),
 }
 
 # kernel-vs-plain cases on the card only (the plain version is slow at these sizes on the CPU):
@@ -59,6 +61,7 @@ GPU_CASES = {
     "B2-ragged-S": (2, 300, 300, 8, 4, 256, True, 0, 50.0, 0),
     "q-offset-1024": (1, 300, 1324, 8, 4, 256, True, 4096, 50.0, 1024),
     "bidirectional": (2, 130, 260, 4, 4, 128, False, 0, 0.0, 0),
+    "nemotron-gqa6-300": (1, 300, 300, 48, 8, 128, True, 0, 0.0, 0),
 }
 
 

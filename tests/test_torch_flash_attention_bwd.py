@@ -7,7 +7,7 @@ The reference trains through JAX's autodiff of its blocked jnp attention
 Function behind ``flash_attention``; both are held to ``jax.vjp`` of the two
 at the reference's f32 kernel tolerance, 2e-5 (``tests/test_kernels.py``).
 The cases cover G = 2, the softcap with q scaled by 4 (so that 1 - t² is far
-from 1), a window, ragged S and T, B = 2 and gemma2's head dim.  The CUDA
+from 1), a window, ragged S and T, B = 2, gemma2's head dim and stablelm's 80.  The CUDA
 kernels run only on a card (``gpu`` marker), held to the plain version and
 to themselves: two calls give bitwise-equal gradients.
 """
@@ -39,6 +39,9 @@ CASES = {
     "ragged-B2-S37": (2, 37, 37, 4, 2, 16, True, 8, 50.0, 4.0),
     "bidirectional-T-ne-S": (1, 24, 40, 4, 2, 16, False, 0, 0.0, 1.0),
     "gemma2-hd256": (1, 32, 32, 8, 4, 256, True, 16, 50.0, 4.0),
+    # stablelm-3b's training geometry, cut in heads and length: MHA at head dim 80, which the bf16
+    # kernels pad to 128 columns
+    "stablelm-hd80": (1, 40, 40, 4, 4, 80, True, 0, 0.0, 1.0),
 }
 CHUNK = 16  # small chunks, so that ragged S and T pad both sides' blocks
 

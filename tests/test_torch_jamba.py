@@ -210,16 +210,16 @@ def test_launcher_runs_on_cpu(capsys):
 
 
 def test_weight_bytes_from_meta_init():
-    """4 bytes per f32 master parameter, plus 2 per parameter that the engine casts to bf16
-    (every dense ``w``/``b`` and the embedding table, but not the f32 router); 2 per parameter
-    with bf16 masters, which the engine does not copy.  Counted here from the JAX tree."""
+    """The launcher holds the weights in the compute dtype only: 2 bytes per parameter that the engine
+    casts to bf16 (every dense ``w``/``b`` and the embedding table, but not the f32 router) and 4 for
+    the rest with f32 masters; 2 per parameter with bf16 masters.  Counted here from the JAX tree."""
     jtree = jax.tree_util.tree_flatten_with_path(JaxModel(JAX_ARCHS[ARCH]).init_abstract())[0]
     paths = [[str(k.key) for k in path] for path, _ in jtree]
     sizes = [int(np.prod(leaf.shape)) for _, leaf in jtree]
     cast = sum(n for path, n in zip(paths, sizes) if path[-1] in ("w", "b", "table") and "router" not in path)
     n = sum(sizes)
     assert n == PARAM_COUNTS[32]
-    assert launch_serve.weight_bytes(get_config(ARCH)) == 4 * n + 2 * cast
+    assert launch_serve.weight_bytes(get_config(ARCH)) == 2 * cast + 4 * (n - cast)
     assert launch_serve.weight_bytes(get_config(ARCH).replace(param_dtype="bfloat16")) == 2 * n == 102_604_218_368
 
 
@@ -235,6 +235,6 @@ def test_launcher_refuses_full_depth_before_drawing(monkeypatch):
 
     monkeypatch.setattr(launch_serve, "build_all", untouched)
     monkeypatch.setattr(Model, "init", untouched)
-    with pytest.raises(RuntimeError, match=r"51302109184 parameters.*307\.8 GB.*102\.6 GB with bfloat16.*80\.0 GB free"):
+    with pytest.raises(RuntimeError, match=r"51302109184 parameters.*\(102\.6 GB held in bfloat16\).*80\.0 GB free"):
         launch_serve.main(["--arch", ARCH])
     launch_serve.check_fits(get_config(ARCH).replace(n_layers=16, param_dtype="bfloat16"), 80_000_000_000)

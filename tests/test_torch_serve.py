@@ -203,11 +203,19 @@ def test_entry_points_refuse_to_fall_back_to_cpu(pair, monkeypatch):
 
 
 def test_unported_layers_raise():
-    """Every mixer and FFN kind of the decoder-only family is ported now; the untied output
-    head is what is left, and it names its ROADMAP.md item instead of running half a model."""
-    cfg = smoke_variant(get_config("gemma2-2b")).replace(tie_embeddings=False)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        Model(cfg, device="cpu").init(torch.Generator().manual_seed(0))
+    """Every mixer and FFN kind of the decoder-only family serves now, with a tied or an untied head;
+    what is left refuses and names its ROADMAP.md item instead of running half a model: training a
+    MoE (olmoe, item 3g) and a MoE with a shared expert (llama4, item 5)."""
+    olmoe = smoke_variant(get_config("olmoe-1b-7b"))
+    model = Model(olmoe, device="cpu")
+    params = model.init(torch.Generator().manual_seed(0))
+    assert "lm_head" in params  # the untied head is drawn and served
+    batch = {"tokens": np.zeros((1, 16), np.int32), "targets": np.zeros((1, 16), np.int32)}
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item 3g"):
+        model.train_loss(params, batch)
+    shared = olmoe.replace(moe=dataclasses.replace(olmoe.moe, shared_expert=True))
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 5"):
+        Model(shared, device="cpu").init(torch.Generator().manual_seed(0))
     with pytest.raises(ValueError, match="MambaSpec"):  # a mamba layer without its spec is refused up front
         smoke_variant(get_config("gemma2-2b")).replace(
             pattern=(LayerSpec(mixer="mamba", ffn="dense"), LayerSpec(mixer="attn", ffn="dense"))

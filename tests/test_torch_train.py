@@ -114,6 +114,16 @@ def test_launcher_trains_the_smoke_model_on_the_cpu():
     assert np.isfinite(result["last_loss"]) and result["last_loss"] < result["first_loss"]
 
 
+def test_build_trainer_cuts_depth_only():
+    """``n_layers`` cuts the depth and keeps every other field of the config, as the ckpt phase of
+    ``chip_smoke.py`` cuts gemma2-2b."""
+    trainer = launch_train.build_trainer("gemma2-2b", smoke=True, n_layers=4, device="cpu", seq_len=16,
+                                         global_batch=2)
+    assert trainer.model.cfg == smoke_variant(get_config("gemma2-2b")).replace(n_layers=4)
+    assert trainer.model.cfg.n_layers != smoke_variant(get_config("gemma2-2b")).n_layers
+    assert {t.shape[0] for t in convert.flatten(trainer.state["params"]["units"]).values()} == {2}
+
+
 @pytest.mark.parametrize("argv,item", [(["--ckpt-every", "1"], "item 3e"), (["--cross-pod", "manual"], "item 6")])
 def test_launcher_refuses_what_is_not_ported(argv, item, capsys):
     """The options the launcher refused until their ROADMAP item was ported: checkpointing (item 3e) runs
