@@ -27,15 +27,24 @@ Phases, each of which raises on failure (the script then exits non-zero):
               one: the smoke shape, gemma2's training shape (bf16 B4 S=T=2048 H8 Kv4 hd256,
               softcap 50) with window 4096 and 0, and with softcap 0 and window 0 (plain causal:
               the function SDPA's causal backward computes), B1 S=T=4608 where the window binds,
-              B2 with a ragged S=300, f32 at S=320, and stablelm-3b's training shape (bf16 B4
+              B2 with a ragged S=300, f32 at S=320, stablelm-3b's training shape (bf16 B4
               S=T=2048 H32 Kv32 hd80, which the kernels pad to 128 columns, softcap 0, window 0;
               scripts/flash_variants.py --padding prices the padding); where bf16 pads hd to whole
               64-column boxes (the smoke shape's 16, stablelm's 80) the padded gradient columns must
               come out zero and the rest bitwise the wrapper's; gates per gradient, atol 2e-2 x rms(plain) with rtol 2e-2
               in bf16 and 2e-5 scaled the same way in f32; CUDA-event times of each
               kernel and of the whole backward against its bound and the plain version, which the
-              backward must beat at gemma2's and stablelm's training shapes; phase 2 must report no
-              spill for the bf16 backward kernels (hd 80 runs their 2-box instantiations);
+              backward must beat at gemma2's, stablelm's and olmoe's training shapes (olmoe-1b-7b: bf16
+              B4 S=T=2048 H16 Kv16 hd128, softcap 0, window 0); phase 2 must report no spill for the
+              bf16 backward kernels (hd 80 runs their 2-box instantiations);
+   wkv6-bwd — WKV-6's training form (the forward that also saves the state before every 16 tokens)
+              bitwise the serving form on out and final state, its first saved state s0; the
+              backward kernel against wkv6_bwd_plain at the smoke C = 16 (bf16, and f32 with s0
+              and ds_fin), rwkv6's training shape (bf16 B4 S2048 H64 C64), a ragged S = 300 with
+              s0 and ds_fin and f32 at S = 320: f32 gradients, and dw, du and ds0 in every dtype, at
+              the scan gate, bf16 dr, dk, dv at the backward's bf16 gate (2e-2 x rms, rtol 2e-2);
+              two calls bitwise equal; kernel, plain and bound ms of both kernels; the backward
+              must beat its plain version at the training shape;
    planted  — copies of the kernels with a fault built in must fail the same gates:
               flash attention that (a) skips the last live KV tile of every block or
               (b) treats the diagonal tiles as interior and skips their causal mask,
@@ -48,7 +57,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
               derivative matters), at gemma2's geometry (B1 S=T=2048 H8 Kv4 hd256) and at
               stablelm's training shape with softcap 50; at stablelm's G = 1 the first-head-only
               fault changes nothing and must give the committed gradients bitwise, so it runs
-              once more at H32 Kv8 hd80, where it must fail;
+              once more at H32 Kv8 hd80, where it must fail; and the WKV-6 backward that (a) drops
+              the bonus from dk and dv, (b) ignores ds_fin, (c) carries dS without the decay or (d)
+              takes dw against S_t instead of S_{t-1}, at f32 B2 S320 H64 C64 with s0 and ds_fin;
 4. serve    — gemma2-2b at full width (26 layers, bf16 compute, f32 weights from a
               seeded torch.Generator) through ServeEngine: 8 prompts of 4-24 tokens,
               4 slots, 16 new tokens, greedy; flash attention must launch exactly 26
@@ -94,10 +105,11 @@ Phases, each of which raises on failure (the script then exits non-zero):
               card's peak within 1 % of its; each save's bytes and pack / write / publish
               seconds, the restore's seconds, the host's memory and the phase's wall time;
 11. train-check — card against CPU in f32 on a full-width cut of gemma2-2b to one unit (2 layers,
-              local and global) and of codeqwen1.5-7b to one layer (its untied head), B1 S320, loss
-              chunk 64: the loss within rtol 1e-5 and every gradient leaf (lm_head and embed apart)
-              within ||card - cpu|| / ||cpu|| <= 1e-4; then 3 Trainer steps of gemma2's smoke model
-              on both, losses within rtol 1e-4;
+              local and global) and of codeqwen1.5-7b (its untied head), rwkv6-7b (the WKV-6
+              training form and backward) and olmoe-1b-7b (its MoE, whose top-8 expert ids must be
+              equal first) to one layer each, B1 S320, loss chunk 64: the loss within rtol 1e-5 and
+              every gradient leaf within ||card - cpu|| / ||cpu|| <= 1e-4; then 3 Trainer steps of
+              gemma2's smoke model on both, losses within rtol 1e-4;
 12. dense   — codeqwen1.5-7b, stablelm-3b, nemotron-4-15b and olmoe-1b-7b, each at full width and
               depth on the serving launcher's weights (every leaf drawn in f32 and stored in bf16 as
               the engine casts it, no master copy: nemotron's 15.6 B parameters in 31.3 GB), bf16
@@ -114,7 +126,14 @@ Phases, each of which raises on failure (the script then exits non-zero):
 13. dense-train — stablelm-3b trained as in phase 9 (full width and depth, 8 steps, B4 S2048,
               remat="unit"): per step flash attention's forward exactly 64 times (32 + 32
               recomputed) and each backward kernel 32 times, at hd 80;
-14. library — SDPA's backward through autograd at each backward case (softcap 0, the same
+14. rwkv6-train — rwkv6-7b trained as in phase 9, cut to 12 of its 32 layers (every width kept:
+              its f32 masters, gradients and AdamW moments fit one card): per step WKV-6's
+              training form exactly 24 times (12 + 12 recomputed) and its backward 12 times, flash
+              attention never;
+15. moe-train — olmoe-1b-7b trained as in phase 9, cut to 6 of its 16 layers: per step flash
+              attention's forward exactly 12 times and each backward kernel 6 times (hd 128), the
+              MoE's load-balance loss in the loss;
+16. library — SDPA's backward through autograd at each backward case (softcap 0, the same
               mask; is_causal for a plain causal one), the backward's library yardstick.  It runs
               last: autograd leaves a cuBLAS workspace on its own thread, which would raise every
               later phase's peak.
@@ -345,6 +364,14 @@ PLANTED = {
                            "#pragma unroll\n"
                            "          for (int c = 0; c < JC; ++c) st[a][c] = 0.f;\n"
                            "      }\n"),
+    "wkv6_bwd_no_bonus": ("wkv6_bwd", [("store(dk + o, sum + rt * ur * vdot[t]);", "store(dk + o, sum);"),
+                                       ("acc + bonus[t] * dos[t * C + j]", "acc")]),
+    "wkv6_bwd_ignores_ds_fin": ("wkv6_bwd", "const bool has_dsfin = ds_fin != nullptr;",
+                                "const bool has_dsfin = false;"),
+    "wkv6_bwd_no_decay_in_carry": ("wkv6_bwd", "ds[a][j] = fmaf(ww[a], ds[a][j], rr[a] * dd[j]);",
+                                   "ds[a][j] = ds[a][j] + rr[a] * dd[j];"),
+    "wkv6_bwd_dw_against_new_state": ("wkv6_bwd", "pw = fmaf(ds[a][j], old[i][a][j], pw);",
+                                      "pw = fmaf(ds[a][j], fmaf(ww[a], old[i][a][j], kk[a] * vv[j]), pw);"),
     "mamba_no_drive": ("mamba_scan", "h[c][s] = fmaf(decay, h[c][s], du * bq[s]);", "h[c][s] = decay * h[c][s];"),
     "mamba_ignores_h0": ("mamba_scan", "const bool has_h0 = h0 != nullptr;", "const bool has_h0 = false;"),
     "mamba_reset_halfway": ("mamba_scan", "    for (int tt = 0; tt < n; tt += 2 * U) {\n",
@@ -486,7 +513,8 @@ def backward_cases():
     appended so that the earlier cases keep their seeds, the training shape with softcap 0 and
     window 0: plain causal attention, the function SDPA's causal backward computes; and
     stablelm-3b's training shape (MHA at hd 80, which the bf16 kernels pad to 128 columns; what the
-    padding costs is priced by scripts/flash_variants.py --padding)."""
+    padding costs is priced by scripts/flash_variants.py --padding); and olmoe-1b-7b's (MHA at hd 128,
+    unpadded, qk-norm outside the kernel)."""
     return [("smoke", "bfloat16", 2, 64, 4, 2, 16, 0, 0.0),
             ("smoke", "float32", 2, 64, 4, 2, 16, 0, 0.0),
             ("gemma2-train", "bfloat16", 4, 2048, 8, 4, 256, 4096, 50.0),
@@ -495,7 +523,8 @@ def backward_cases():
             ("gemma2-B2-ragged", "bfloat16", 2, 300, 8, 4, 256, 0, 50.0),
             ("gemma2-f32", "float32", 1, 320, 8, 4, 256, 4096, 50.0),
             ("gemma2-train-causal", "bfloat16", 4, 2048, 8, 4, 256, 0, 0.0),
-            ("stablelm-train", "bfloat16", 4, 2048, 32, 32, 80, 0, 0.0)]
+            ("stablelm-train", "bfloat16", 4, 2048, 32, 32, 80, 0, 0.0),
+            ("olmoe-train", "bfloat16", 4, 2048, 16, 16, 128, 0, 0.0)]
 
 
 def backward_inputs(torch, dtype, B, S, H, Kv, hd, q_scale, seed):
@@ -592,7 +621,7 @@ def run_backward_cases(torch, card):
                    bound_ms={n: b[0] for n, b in bounds.items()}, bound_by={n: b[1] for n, b in bounds.items()},
                    card=card)
         print(json.dumps(row), flush=True)
-        if label.startswith(("gemma2-train", "stablelm-train")) and not backward_ms < plain_ms:
+        if label.startswith(("gemma2-train", "stablelm-train", "olmoe-train")) and not backward_ms < plain_ms:
             raise AssertionError(f"{name}: the backward kernels take {backward_ms:.3f} ms, no faster than "
                                  f"their plain version's {plain_ms:.3f} ms")
         rows.append(row)
@@ -798,6 +827,163 @@ def wkv6_planted_checks(torch, card, planted):
 
 
 # ---------------------------------------------------------------------------
+# phase 3, WKV-6 backward: the kernel against wkv6_bwd_plain, the forward's training form, planted faults
+# ---------------------------------------------------------------------------
+
+WKV_GRADS = ("dr", "dk", "dv", "dw", "du", "ds0")
+
+
+def wkv6_bwd_cases():
+    """(label, dtype, B, S, H, C, s0 and ds_fin given): the smoke C = 16 in bf16 and (with s0 and ds_fin)
+    f32; rwkv6's training shape (bf16 B4 S2048 H64 C64, no s0 or ds_fin, as training calls it); a ragged
+    S = 300 with s0 and ds_fin (a last chunk of 12 tokens); f32 at S = 320."""
+    return [("smoke", "bfloat16", 2, 64, 4, 16, False),
+            ("smoke", "float32", 2, 64, 4, 16, True),
+            ("rwkv6-train", "bfloat16", 4, 2048, 64, 64, False),
+            ("rwkv6-ragged", "bfloat16", 1, 300, 64, 64, True),
+            ("rwkv6-f32", "float32", 2, 320, 64, 64, True)]
+
+
+def wkv6_bwd_inputs(torch, dtype, B, S, H, C, carried, seed):
+    """r, k, v, w, u as wkv6_inputs draws them; s0 and ds_fin ~ N(0, 1) when ``carried``; dout ~ N(0, 1), f32."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    r, k, v, w, u = wkv6_inputs(torch, gen, dtype, B, S, H, C)
+    s0 = torch.randn((B, H, C, C), generator=gen, device="cuda") if carried else None
+    dout = torch.randn((B, S, H, C), generator=gen, device="cuda")
+    ds_fin = torch.randn((B, H, C, C), generator=gen, device="cuda") if carried else None
+    return r, k, v, w, u, s0, dout, ds_fin
+
+
+def wkv6_bwd_tols(dtype, plain) -> dict:
+    """bf16 dr, dk, dv at the backward's bf16 gate (2e-2 x rms, rtol 2e-2: both round an f32 result to bf16
+    once); f32 ones, and dw, du and ds0 (f32 in every dtype), at the scan gate (1e-4 x rms, rtol 1e-4)."""
+    return {g: grad_tol("bfloat16", p) if dtype == "bfloat16" and g in ("dr", "dk", "dv") else scan_tol(p)
+            for g, p in zip(WKV_GRADS, plain)}
+
+
+def wkv6_train_bounds(dtype, B, S, H, C, with_s0, with_dsfin):
+    """{"forward_train": ..., "backward": ...}: (least ms, "bytes" or "operations").
+
+    The training form is the forward (wkv6_bound's count) plus the states it saves, f32 [B, H, ceil(S / 16), C, C].
+    The backward: 14 C^2 f32 FLOP per token and head (dr, dk, dv, dw a multiply-add per state element each;
+    the dS carry and the old state's recomputation a multiply and a multiply-add each); bytes, each once:
+    r, k, v read and dr, dk, dv written in their dtype, w, dout, dw and the saved states in f32, u, du
+    and ds0 (ds_fin) in f32.
+    """
+    from repro_torch.kernels.wkv6 import CHECKPOINT
+
+    n, states = B * S * H * C, B * H * -(-S // CHECKPOINT) * C * C
+    elt = 2 if dtype == "bfloat16" else 4
+    fwd_ops_ms = 5.0 * B * S * H * C * C / PEAK_FLOPS["float32"] * 1e3
+    fwd_bytes_ms = (3 * elt * n + 4 * (2 * n + H * C + (2 if with_s0 else 1) * B * H * C * C + states)) \
+        / HBM_BYTES_PER_S * 1e3
+    bwd_bytes = 6 * elt * n + 4 * (3 * n + states + 2 * H * C + (2 if with_dsfin else 1) * B * H * C * C)
+    bwd_ops_ms = 14.0 * B * S * H * C * C / PEAK_FLOPS["float32"] * 1e3
+    bwd_bytes_ms = bwd_bytes / HBM_BYTES_PER_S * 1e3
+    return {"forward_train": (max(fwd_ops_ms, fwd_bytes_ms), "bytes" if fwd_bytes_ms >= fwd_ops_ms else "operations"),
+            "backward": (max(bwd_ops_ms, bwd_bytes_ms), "bytes" if bwd_bytes_ms >= bwd_ops_ms else "operations")}
+
+
+def run_wkv6_bwd_cases(torch, card):
+    """Each case: the training form's out and final state bitwise the serving form's and within the scan
+    gate of the plain version's, and its first saved state s0; the backward kernel against wkv6_bwd_plain at each gradient's gate, two calls bitwise equal;
+    CUDA-event times of both kernels, the serving forward, the plain versions, and the bounds.  The backward
+    must beat its plain version at the training shape."""
+    import repro_torch.kernels.wkv6 as wk
+
+    rows = []
+    for seed, (label, dtype, B, S, H, C, carried) in enumerate(wkv6_bwd_cases(), start=500):
+        r, k, v, w, u, s0, dout, ds_fin = wkv6_bwd_inputs(torch, dtype, B, S, H, C, carried, seed)
+        name = f"{label} {dtype} B{B} S{S} H{H} C{C}" + (" s0 ds_fin" if carried else "")
+        out, s_fin = wk._launch(r, k, v, w, u, s0)
+        out_t, s_fin_t, s_chk = wk._launch(r, k, v, w, u, s0, train=True)
+        first = torch.zeros_like(s_chk[:, :, 0]) if s0 is None else s0
+        if not (torch.equal(out, out_t) and torch.equal(s_fin, s_fin_t) and torch.equal(s_chk[:, :, 0], first)):
+            raise AssertionError(f"{name}: the training form's out / final state differ from the serving form's, "
+                                 f"or its first saved state is not s0")
+        plain_out, plain_state = wk.wkv6_plain(r, k, v, w, u, chunk=256, s0=s0)
+        fwd_err = max(check_close(f"{name} training form", out_t, plain_out, scan_tol(plain_out)),
+                      check_close(f"{name} training form, final state", s_fin_t, plain_state, scan_tol(plain_state)))
+        del plain_out, plain_state
+        before = wk.wkv6_bwd.launches
+        grads = wk.wkv6_bwd(r, k, v, w, u, s_chk, dout, ds_fin)
+        again = wk.wkv6_bwd(r, k, v, w, u, s_chk, dout, ds_fin)
+        torch.cuda.synchronize()
+        if wk.wkv6_bwd.launches != before + 2:
+            raise AssertionError(f"{name}: {wk.wkv6_bwd.launches - before} backward launches for two calls")
+        bitwise = all(torch.equal(a, b) for a, b in zip(grads, again))
+        if not bitwise:
+            raise AssertionError(f"{name}: two backward calls differ")
+        plain = wk.wkv6_bwd_plain(r, k, v, w, u, s0, dout, ds_fin)
+        tols = wkv6_bwd_tols(dtype, plain)
+        errs = {}
+        for g, got, want in zip(WKV_GRADS, grads, plain):
+            if got.shape != want.shape or got.dtype != want.dtype:
+                raise AssertionError(f"{name} {g}: {got.dtype} {tuple(got.shape)}, plain {want.dtype} "
+                                     f"{tuple(want.shape)}")
+            errs[g] = check_close(f"{name} {g}", got, want, tols[g])
+        kernel_ms = cuda_ms(torch, lambda: wk.wkv6_bwd(r, k, v, w, u, s_chk, dout, ds_fin))
+        train_ms = cuda_ms(torch, lambda: wk._launch(r, k, v, w, u, s0, train=True))
+        serve_ms = cuda_ms(torch, lambda: wk._launch(r, k, v, w, u, s0))
+        plain_ms = cuda_ms(torch, lambda: wk.wkv6_bwd_plain(r, k, v, w, u, s0, dout, ds_fin), max_reps=2)
+        plain_fwd_ms = cuda_ms(torch, lambda: wk.wkv6_plain(r, k, v, w, u, chunk=256, s0=s0), max_reps=2)
+        bounds = wkv6_train_bounds(dtype, B, S, H, C, s0 is not None, ds_fin is not None)
+        row = dict(case=name, label=label, dtype=dtype, seed=seed, max_abs_err=errs, tol=tols, bitwise_repeat=bitwise,
+                   forward_max_abs_err=fwd_err,
+                   kernel_ms=kernel_ms, plain_ms=plain_ms, plain="wkv6_bwd_plain (token by token, f32)",
+                   forward_train_ms=train_ms, forward_serve_ms=serve_ms, plain_forward_ms=plain_fwd_ms,
+                   bound_ms={n_: b[0] for n_, b in bounds.items()}, bound_by={n_: b[1] for n_, b in bounds.items()},
+                   library_ms=None, library="none", card=card)
+        print(json.dumps(row), flush=True)
+        if label == "rwkv6-train" and not kernel_ms < plain_ms:
+            raise AssertionError(f"{name}: the backward kernel takes {kernel_ms:.3f} ms, no faster than its plain "
+                                 f"version's {plain_ms:.3f} ms")
+        rows.append(row)
+        del r, k, v, w, u, s0, dout, ds_fin, grads, again, plain, s_chk
+    torch.cuda.empty_cache()
+    return rows
+
+
+def wkv6_bwd_planted_checks(torch, card, planted):
+    """Each faulty build of the WKV-6 backward must put elements of some gradient outside its gate, at f32
+    B2 S320 H64 C64 with s0 and ds_fin, where the committed build puts none."""
+    import ctypes
+
+    import repro_torch.kernels.wkv6 as wk
+
+    B, S, H, C = 2, 320, 64, 64
+    r, k, v, w, u, s0, dout, ds_fin = wkv6_bwd_inputs(torch, "float32", B, S, H, C, True, seed=600)
+    _, _, s_chk = wk._launch(r, k, v, w, u, s0, train=True)
+    plain = wk.wkv6_bwd_plain(r, k, v, w, u, s0, dout, ds_fin)
+    tols = wkv6_bwd_tols("float32", plain)
+
+    def outside(grads):
+        return {g: n_outside(got, want, tols[g]) for g, got, want in zip(WKV_GRADS, grads, plain)}
+
+    good = outside(wk.wkv6_bwd(r, k, v, w, u, s_chk, dout, ds_fin))
+    if any(good.values()):
+        raise AssertionError(f"planted: the committed WKV-6 backward fails its own gate: {good}")
+    checks = (("wkv6_bwd_no_bonus", "the bonus term is dropped from dk and dv"),
+              ("wkv6_bwd_ignores_ds_fin", "ds_fin is ignored (the sweep starts from zero)"),
+              ("wkv6_bwd_no_decay_in_carry", "the dS carry has no decay: dS_{t-1} = dS_t + r_t dout_t"),
+              ("wkv6_bwd_dw_against_new_state", "dw is taken against S_t instead of S_{t-1}"))
+    for name, fault in checks:
+        lib = wk._bind_bwd(ctypes.CDLL(str(planted[name])))
+        good_lib, wk._bwd_lib = wk._bwd_lib, lambda: lib
+        try:
+            grads = wk.wkv6_bwd(r, k, v, w, u, s_chk, dout, ds_fin)
+            torch.cuda.synchronize()
+        finally:
+            wk._bwd_lib = good_lib
+        bad = outside(grads)
+        log("planted", json.dumps(dict(fault=f"WKV-6 backward: {fault}", case=f"float32 B{B} S{S} H{H} C{C} s0 ds_fin",
+                                       outside_tol=bad, committed_outside_tol=good, tol=tols,
+                                       elements={g: x.numel() for g, x in zip(WKV_GRADS, grads)}, card=card)))
+        if not any(bad.values()):
+            raise AssertionError(f"planted {name}: the WKV-6 backward gate passed a kernel where {fault}")
+
+
+# ---------------------------------------------------------------------------
 # phase 3, selective scan: kernel vs plain at the scan tolerance, and its planted faults
 # ---------------------------------------------------------------------------
 
@@ -948,7 +1134,7 @@ def kernel_counters():
     """Each launch count, by name: (the wrapper that holds it, its attribute)."""
     from repro_torch.kernels.flash_attention import flash_attention, flash_attention_bwd
     from repro_torch.kernels.mamba_scan import mamba_scan
-    from repro_torch.kernels.wkv6 import wkv6
+    from repro_torch.kernels.wkv6 import wkv6, wkv6_bwd
 
     return {"flash_attention": (flash_attention, "launches"),
             "flash_attention_wgmma": (flash_attention, "launches_wgmma"),
@@ -956,15 +1142,18 @@ def kernel_counters():
             "flash_attention_bwd_rowdot": (flash_attention_bwd, "launches_rowdot"),
             "flash_attention_bwd_dkdv": (flash_attention_bwd, "launches_dkdv"),
             "flash_attention_bwd_dq": (flash_attention_bwd, "launches_dq"),
-            "wkv6": (wkv6, "launches"), "mamba_scan": (mamba_scan, "launches")}
+            "wkv6": (wkv6, "launches"), "wkv6_train": (wkv6, "launches_train"), "wkv6_bwd": (wkv6_bwd, "launches"),
+            "mamba_scan": (mamba_scan, "launches")}
 
 
-def launch_counts(n_flash: int = 0, n_wkv6: int = 0, n_scan: int = 0, n_bwd: int = 0) -> dict:
+def launch_counts(n_flash: int = 0, n_wkv6: int = 0, n_scan: int = 0, n_bwd: int = 0, n_wkv6_train: int = 0,
+                  n_wkv6_bwd: int = 0) -> dict:
     """A pass's exact launch counts: every flash launch of the bf16 paths on the tensor-core kernel,
-    and n_bwd launches of each backward kernel."""
+    n_bwd launches of each flash backward kernel, n_wkv6 WKV-6 forward launches of which n_wkv6_train
+    in the training form, and n_wkv6_bwd of the WKV-6 backward."""
     return {"flash_attention": n_flash, "flash_attention_wgmma": n_flash, "flash_attention_scalar": 0,
             "flash_attention_bwd_rowdot": n_bwd, "flash_attention_bwd_dkdv": n_bwd, "flash_attention_bwd_dq": n_bwd,
-            "wkv6": n_wkv6, "mamba_scan": n_scan}
+            "wkv6": n_wkv6, "wkv6_train": n_wkv6_train, "wkv6_bwd": n_wkv6_bwd, "mamba_scan": n_scan}
 
 
 def serve(torch, model, params, card, *, prompts, max_len, slots, max_new, phase, per_pass):
@@ -1230,6 +1419,9 @@ def launcher_serve(torch, card, arch):
 # ---------------------------------------------------------------------------
 
 TRAIN = dict(steps=8, seq_len=2048, global_batch=4, microbatches=1, lr=1e-3, seed=0)
+# phases 14-15: the depth each arch is cut to, every width kept, so that its f32 masters, gradients and two
+# AdamW moments (16 bytes a parameter) fit one card: rwkv6-7b 2.89 B parameters, olmoe-1b-7b 2.72 B
+TRAIN_CUTS = {"rwkv6-7b": 12, "olmoe-1b-7b": 6}
 
 
 class FullCollections:
@@ -1277,8 +1469,10 @@ def train_phase(torch, card, arch="gemma2-2b", phase="train", keep_final=False, 
             or dtypes != ["torch.float32"]):
         raise AssertionError(f"{phase}: {cfg.n_layers} layers, remat {cfg.remat}, compute {cfg.dtype}, "
                              f"params {dtypes}")
-    n_attn = cfg.n_layers
-    per_step = launch_counts(n_flash=2 * n_attn, n_bwd=n_attn)   # forward, recomputed forward, backward
+    n_attn = cfg.n_units * sum(spec.mixer in ("attn", "attn_local") for spec in cfg.pattern)
+    n_rwkv = cfg.n_units * sum(spec.mixer == "rwkv" for spec in cfg.pattern)
+    per_step = launch_counts(n_flash=2 * n_attn, n_bwd=n_attn,   # forward, recomputed forward, backward
+                             n_wkv6=2 * n_rwkv, n_wkv6_train=2 * n_rwkv, n_wkv6_bwd=n_rwkv)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for obj, attr in counters.values():
@@ -1300,6 +1494,7 @@ def train_phase(torch, card, arch="gemma2-2b", phase="train", keep_final=False, 
     tokens = TRAIN["global_batch"] * TRAIN["seq_len"]
     step_ms = [1e3 * m["seconds"] for m in log_rows]
     stats = dict(model=cfg.name, layers=cfg.n_layers, params=sum(t.numel() for t in leaves(params)),
+                 full_depth_layers=get_config(arch).n_layers,
                  remat=cfg.remat, batch=TRAIN["global_batch"], seq=TRAIN["seq_len"], steps=len(log_rows),
                  losses=losses, grad_norms=norms, lrs=[m["lr"] for m in log_rows], step_ms=step_ms,
                  step_ms_after_first=sum(step_ms[1:]) / len(step_ms[1:]),
@@ -1437,25 +1632,47 @@ def ckpt_phase(torch, card, train_stats, train_final):
 
 
 def train_check_cut(torch, card, cut, label):
-    """The card's loss and gradients against the CPU's (plain attention), f32, on the same weights and batch:
-    the loss within rtol 1e-5, every gradient leaf within ||card - cpu|| / ||cpu|| <= 1e-4."""
+    """The card's loss and gradients against the CPU's (plain attention and WKV-6), f32, on the same weights
+    and batch: each MoE layer's top-k expert ids equal first, then the loss within rtol 1e-5 and every
+    gradient leaf within ||card - cpu|| / ||cpu|| <= 1e-4."""
     from repro_torch import convert
     from repro_torch.data import ShardedPipeline, SyntheticLM
     from repro_torch.models import Model
+    from repro_torch.models import moe
 
     batch = ShardedPipeline(SyntheticLM(vocab_size=cut.vocab_size, seq_len=320, period=16, vocab_eff=256),
                             global_batch=1).batch_at(0)
     params_gpu = Model(cut, device="cuda").init(torch.Generator(device="cuda").manual_seed(3))
-    out = {}
-    for device, params in (("cuda", params_gpu), ("cpu", tree_map(lambda t: t.detach().cpu(), params_gpu))):
-        flat = convert.flatten(params)
-        for leaf in flat.values():
-            leaf.requires_grad_(True)
-        loss, _ = Model(cut, device=device).train_loss(params, batch, loss_chunk=64)
-        grads = torch.autograd.grad(loss, list(flat.values()))
-        out[device] = (float(loss.detach()), {p: g.detach().cpu() for p, g in zip(flat, grads)})
-        del params, flat, grads
+    out, routes, real_gating = {}, {}, moe._top_k_gating
+
+    def recording(logits, top_k):  # the forward's expert ids on each device (a recomputation repeats them)
+        gates, idx, probs = real_gating(logits, top_k)
+        routes.setdefault(logits.device.type, []).append(idx.detach().cpu())
+        return gates, idx, probs
+
+    moe._top_k_gating = recording
+    try:
+        for device, params in (("cuda", params_gpu), ("cpu", tree_map(lambda t: t.detach().cpu(), params_gpu))):
+            flat = convert.flatten(params)
+            for leaf in flat.values():
+                leaf.requires_grad_(True)
+            loss, _ = Model(cut, device=device).train_loss(params, batch, loss_chunk=64)
+            grads = torch.autograd.grad(loss, list(flat.values()))
+            out[device] = (float(loss.detach()), {p: g.detach().cpu() for p, g in zip(flat, grads)})
+            del params, flat, grads
+    finally:
+        moe._top_k_gating = real_gating
     del params_gpu
+    if routes:  # the MoE layers' choices first: a different expert would make every later number differ
+        n_cpu = cut.n_layers if cut.remat == "none" else 2 * cut.n_layers
+        ids = {d: torch.stack(r[:len(routes["cpu"])]) for d, r in routes.items()}
+        differ = int((ids["cuda"] != ids["cpu"]).any(-1).sum())
+        log("train-check", json.dumps(dict(cut=label, moe_calls={d: len(r) for d, r in routes.items()},
+                                           top_k=cut.moe.top_k, experts=cut.moe.n_experts,
+                                           tokens_with_other_experts=differ, card=card)))
+        if len(routes["cpu"]) != n_cpu or differ:
+            raise AssertionError(f"train-check {cut.name}: top-{cut.moe.top_k} expert ids differ between card and "
+                                 f"CPU at {differ} tokens ({len(routes['cpu'])} gating calls on the CPU)")
     (loss_g, grads_g), (loss_c, grads_c) = out["cuda"], out["cpu"]
     rel = {p: ((grads_g[p] - g).norm() / g.norm().clamp_min(1e-30)).item() for p, g in grads_c.items()}
     worst = max(rel, key=rel.get)
@@ -1474,7 +1691,8 @@ def train_check_cut(torch, card, cut, label):
 
 def train_check(torch, card):
     """Training, card against CPU: a full-width unit of gemma2-2b (a local and a global layer), a full-width
-    layer of codeqwen1.5-7b (an untied head), and 3 Trainer steps of gemma2's smoke model."""
+    layer each of codeqwen1.5-7b (an untied head), rwkv6-7b (the WKV-6 kernels) and olmoe-1b-7b (the MoE
+    and its load-balance loss), and 3 Trainer steps of gemma2's smoke model."""
     from repro_torch.configs import get_config
     from repro_torch.launch.train import build_trainer
 
@@ -1482,6 +1700,10 @@ def train_check(torch, card):
     train_check_cut(torch, card, cut, f"{cut.name} {cut.n_layers} layers f32")
     cut = get_config("codeqwen1.5-7b").replace(n_layers=1, dtype="float32")
     train_check_cut(torch, card, cut, f"{cut.name} {cut.n_layers} layer f32, untied head")
+    cut = get_config("rwkv6-7b").replace(n_layers=1, dtype="float32")
+    train_check_cut(torch, card, cut, f"{cut.name} {cut.n_layers} layer f32, WKV-6 forward and backward kernels")
+    cut = get_config("olmoe-1b-7b").replace(n_layers=1, dtype="float32")
+    train_check_cut(torch, card, cut, f"{cut.name} {cut.n_layers} layer f32, top-8 of 64 experts, untied head")
 
     # the CPU trainer starts from the card trainer's weights: the two generators draw different numbers
     trainers = {device: build_trainer("gemma2-2b", smoke=True, steps=3, device=device) for device in ("cuda", "cpu")}
@@ -1523,12 +1745,13 @@ def library_backward(torch, card, rows):
         del qh, kh, vh, out
 
 
-def backward_entries(rows, train_stats, ckpt_stats, dense_train_stats, card):
-    """The kernels line's entries of the backward kernels, at gemma2's training shape, window 4096, and at
-    stablelm-3b's (hd 80)."""
+def backward_entries(rows, train_stats, ckpt_stats, dense_train_stats, moe_train_stats, card):
+    """The kernels line's entries of the backward kernels, at gemma2's training shape, window 4096, at
+    stablelm-3b's (hd 80) and at olmoe-1b-7b's (H16 hd 128)."""
     row = next(r for r in rows if r["label"] == "gemma2-train" and r["window"] == 4096)
     same = next(r for r in rows if r["label"] == "gemma2-train-causal")  # softcap 0: SDPA's own function
     hd80 = next(r for r in rows if r["label"] == "stablelm-train")
+    olmoe = next(r for r in rows if r["label"] == "olmoe-train")
     max_err = max(row["max_abs_err"][g] for g in ("dq", "dk", "dv"))
     return [dict(
         name=f"flash_attention_bwd_{kname}", route="cuda", source="src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
@@ -1548,7 +1771,34 @@ def backward_entries(rows, train_stats, ckpt_stats, dense_train_stats, card):
         hd80_plain_ms=hd80["plain_ms"], hd80_bound_ms=hd80["bound_ms"][kname],
         hd80_backward_bound_ms=hd80["bound_ms"]["backward"], hd80_library_ms=hd80["library_ms"],
         hd80_max_abs_err={g: hd80["max_abs_err"][g] for g in ("dq", "dk", "dv")},
+        launches_moe_train=moe_train_stats["kernel_launches"][f"flash_attention_bwd_{kname}"],
+        olmoe_shape=olmoe["case"], olmoe_ms=olmoe["kernel_ms"][kname], olmoe_backward_ms=olmoe["backward_ms"],
+        olmoe_plain_ms=olmoe["plain_ms"], olmoe_bound_ms=olmoe["bound_ms"][kname],
+        olmoe_backward_bound_ms=olmoe["bound_ms"]["backward"], olmoe_library_ms=olmoe["library_ms"],
+        olmoe_max_abs_err={g: olmoe["max_abs_err"][g] for g in ("dq", "dk", "dv")},
         card=card) for kname in ("rowdot", "dkdv", "dq")]
+
+
+def wkv6_train_entries(rows, rwkv_train_stats, card):
+    """The kernels line's entries of WKV-6's training form and its backward, at rwkv6's training shape."""
+    row = next(r for r in rows if r["label"] == "rwkv6-train")
+    common = dict(route="cuda", replaces="src/repro/kernels/rwkv6_scan.py:96", shape=row["case"], library_ms=None,
+                  library="none", card=card)
+    return [dict(
+        name="wkv6_train_form", source="src/repro_torch/kernels/csrc/wkv6.cu",
+        replaces_note="wkv6_pallas's function, and the state before every 16 tokens for the backward",
+        launches=rwkv_train_stats["kernel_launches"]["wkv6_train"], max_abs_err=row["forward_max_abs_err"],
+        max_abs_err_note="out and final state against wkv6_plain at the scan gate (and bitwise the serving form's)",
+        ms=row["forward_train_ms"], serving_form_ms=row["forward_serve_ms"], plain_ms=row["plain_forward_ms"],
+        bound_ms=row["bound_ms"]["forward_train"], bound_by=row["bound_by"]["forward_train"], **common,
+    ), dict(
+        name="wkv6_bwd", source="src/repro_torch/kernels/csrc/wkv6_bwd.cu",
+        replaces_note="the gradient of that forward-only Pallas kernel: the reference differentiates its jnp twin "
+                      "wkv_chunked (src/repro/models/rwkv6.py:77-149) with JAX",
+        launches=rwkv_train_stats["kernel_launches"]["wkv6_bwd"], max_abs_err=max(row["max_abs_err"].values()),
+        max_abs_err_by_grad=row["max_abs_err"], tol=row["tol"], ms=row["kernel_ms"], plain_ms=row["plain_ms"],
+        plain=row["plain"], bound_ms=row["bound_ms"]["backward"], bound_by=row["bound_by"]["backward"], **common,
+    )]
 
 
 def main() -> int:
@@ -1582,6 +1832,8 @@ def main() -> int:
     planted_fault_check(torch, card, planted)
     wkv_rows = run_wkv6_cases(torch, card)
     wkv6_planted_checks(torch, card, planted)
+    wkv_bwd_rows = run_wkv6_bwd_cases(torch, card)
+    wkv6_bwd_planted_checks(torch, card, planted)
     scan_rows = run_mamba_cases(torch, card)
     mamba_planted_checks(torch, card, planted)
     bwd_rows = run_backward_cases(torch, card)
@@ -1661,9 +1913,21 @@ def main() -> int:
     log("time", f"phase 13 (dense-train) took {time.perf_counter() - t_phase:.1f} s, done at "
                 f"{time.perf_counter() - t_start:.1f} s")
 
-    # 14. the backward's library yardstick, after every peak has been read
+    # 14-15. rwkv6-7b and olmoe-1b-7b training at full width, cut in depth
+    t_phase = time.perf_counter()
+    rwkv_train_stats, _ = train_phase(torch, card, arch="rwkv6-7b", phase="rwkv6-train",
+                                      n_layers=TRAIN_CUTS["rwkv6-7b"])
+    log("time", f"phase 14 (rwkv6-train) took {time.perf_counter() - t_phase:.1f} s, done at "
+                f"{time.perf_counter() - t_start:.1f} s")
+    t_phase = time.perf_counter()
+    moe_train_stats, _ = train_phase(torch, card, arch="olmoe-1b-7b", phase="moe-train",
+                                     n_layers=TRAIN_CUTS["olmoe-1b-7b"])
+    log("time", f"phase 15 (moe-train) took {time.perf_counter() - t_phase:.1f} s, done at "
+                f"{time.perf_counter() - t_start:.1f} s")
+
+    # 16. the backward's library yardstick, after every peak has been read
     library_backward(torch, card, bwd_rows)
-    log("time", f"phase 14 done at {time.perf_counter() - t_start:.1f} s")
+    log("time", f"phase 16 done at {time.perf_counter() - t_start:.1f} s")
 
     main_row = next(r for r in rows if r["case"].startswith("gemma2-serve-long bfloat16")
                     and r["window"] == 4096)
@@ -1694,17 +1958,19 @@ def main() -> int:
         launches_dense_long={arch: st["long"]["kernel_launches"]["flash_attention_wgmma"]
                              for arch, st in dense_stats.items()},
         launches_dense_train=dense_train_stats["kernel_launches"]["flash_attention"],
+        launches_moe_train=moe_train_stats["kernel_launches"]["flash_attention"],
         launches_launcher_nemotron=launcher_stats["kernel_launches"]["flash_attention_wgmma"],
         dense_long_shapes={label: {key: r[key] for key in dense_keys} for label, r in dense_rows.items()},
         card=card,
-    ), *backward_entries(bwd_rows, train_stats, ckpt_stats, dense_train_stats, card), dict(
+    ), *backward_entries(bwd_rows, train_stats, ckpt_stats, dense_train_stats, moe_train_stats, card), dict(
         name="wkv6", route="cuda", source="src/repro_torch/kernels/csrc/wkv6.cu",
         replaces="src/repro/kernels/rwkv6_scan.py:96", launches=rwkv_stats["kernel_launches"]["wkv6"],
         max_abs_err=wkv_row["max_abs_err"], ms=wkv_row["kernel_ms"], plain_ms=wkv_row["plain_ms"],
         bound_ms=wkv_row["bound_ms"], bound_by=wkv_row["bound_by"], library_ms=None,
         tol=wkv_row["tol"], shape=wkv_row["case"], library="none",
-        launches_long_prompt=rwkv_long_stats["kernel_launches"]["wkv6"], card=card,
-    ), dict(
+        launches_long_prompt=rwkv_long_stats["kernel_launches"]["wkv6"],
+        launches_rwkv6_train=rwkv_train_stats["kernel_launches"]["wkv6"], card=card,
+    ), *wkv6_train_entries(wkv_bwd_rows, rwkv_train_stats, card), dict(
         name="mamba_scan", route="cuda", source="src/repro_torch/kernels/csrc/mamba_scan.cu",
         replaces="src/repro/kernels/mamba_scan.py:76", launches=jamba_stats["kernel_launches"]["mamba_scan"],
         max_abs_err=scan_row["max_abs_err"], ms=scan_row["kernel_ms"], plain_ms=scan_row["plain_ms"],

@@ -5,7 +5,9 @@
   ``repro.kernels.flash_attention.flash_attention_pallas``.
 - :mod:`.wkv6` — the RWKV-6 WKV recurrence with a state in and out (CUDA C++,
   ``csrc/wkv6.cu``), replacing ``repro.kernels.rwkv6_scan.wkv6_pallas`` and
-  computing the function of its jnp twin ``repro.models.rwkv6.wkv_chunked``.
+  computing the function of its jnp twin ``repro.models.rwkv6.wkv_chunked``;
+  its gradient, the backward kernel ``csrc/wkv6_bwd.cu`` behind an autograd
+  Function.
 - :mod:`.mamba_scan` — the Mamba-1 selective scan with a state in and out
   (CUDA C++, ``csrc/mamba_scan.cu``), replacing
   ``repro.kernels.mamba_scan.mamba_scan_pallas`` and computing the function of

@@ -64,9 +64,17 @@
 // 128-thread blocks that fit the card in one wave, one 8-token tile, and
 // tokens past the end skipped rather than computed as identities.
 //
+// Training form.  wkv6_forward_train also writes the state before every CK = 16
+// tokens, s_chk [B, H, ceil(S / CK), C, C] in f32 (the first is s0, or zero), from
+// which the backward (csrc/wkv6_bwd.cu) recomputes the old states it needs.  A
+// boundary falls at the start of a step of two groups (2 TK divides CK at every C),
+// so the write is one patch store per step that starts a chunk; serving passes no
+// s_chk and skips it.  At the training shape (bf16 B4 S2048 H64 C64) the saved
+// states are 537 MB, which adds 0.160 ms to the bytes bound.
+//
 // Inputs: r, k, v [B, S, H, C] in f32 or bf16; w [B, S, H, C], u [H, C] and
 // s0 [B, H, C, C] (optional) in f32.  Outputs, both f32: out [B, S, H, C] and
-// s_fin [B, H, C, C].  All contiguous and 16-byte aligned.
+// s_fin [B, H, C, C], and s_chk in the training form.  All contiguous and 16-byte aligned.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -76,6 +84,7 @@ namespace {
 
 constexpr int NSTAGE = 2;     // tiles in the shared-memory ring: NSTAGE - 1 in flight while one is computed
 constexpr int SHORT_SEQ = 8;  // calls of at most this many tokens (decode steps) take the short patch
+constexpr int CK = 16;        // tokens between the states the training form saves (csrc/wkv6_bwd.cu reads them)
 
 // Each thread's patch of the state, RI rows x JC columns, and the JB columns of a block.
 // The short patch (a quarter of one column's rows per thread) halves the threads of the
@@ -114,6 +123,7 @@ struct Geometry {
   static_assert(NT % TT == 0 && LPT <= 32 && RP % 2 == 0 && V_BYTES % 16 == 0, "prologue");
   static_assert(SMEM == NSTAGE * STAGE + TT * 4 && SMEM <= 48 * 1024, "within the default shared memory");
   static_assert(!SHORT || TT >= SHORT_SEQ, "a short call is one tile");
+  static_assert(SHORT || (CK % (2 * TK) == 0 && TT % CK == 0), "a saved state falls at the start of a step");
 };
 
 __device__ __forceinline__ float bf16_lo(uint32_t x) { return __uint_as_float(x << 16); }
@@ -238,7 +248,7 @@ template <typename T, int C, bool SHORT>
 __global__ void __launch_bounds__(Geometry<T, C, SHORT>::NT, SHORT ? 4 : 1) wkv6_kernel(
     const T* __restrict__ r, const T* __restrict__ k, const T* __restrict__ v,
     const float* __restrict__ w, const float* __restrict__ u, const float* __restrict__ s0,
-    float* __restrict__ out, float* __restrict__ s_fin, int seq, int H) {
+    float* __restrict__ out, float* __restrict__ s_fin, float* __restrict__ s_chk, int seq, int H) {
   using Gm = Geometry<T, C, SHORT>;
   constexpr int RI = Gm::RI, JC = Gm::JC, JB = Gm::JB, G = Gm::G, NT = Gm::NT, TK = Gm::TK, TT = Gm::TT;
   constexpr int LPT = Gm::LPT, RP = Gm::RP;
@@ -270,6 +280,18 @@ __global__ void __launch_bounds__(Geometry<T, C, SHORT>::NT, SHORT ? 4 : 1) wkv6
       for (int c = 0; c < JC; ++c) st[a][c] = 0.f;
     }
   }
+
+  // the training form's saved state before token t, a multiple of CK
+  const size_t chk_base = ((size_t)b * H + h) * ((seq + CK - 1) / CK) * C * C;
+  auto save_state = [&](int t) {
+    float* dst = s_chk + chk_base + (size_t)(t / CK) * C * C;
+#pragma unroll
+    for (int a = 0; a < RI; ++a) {
+#pragma unroll
+      for (int c = 0; c < JC; ++c) dst[(size_t)(row0 + a) * C + col0 + jl0 + c] = st[a][c];
+    }
+  };
+  if (s_chk != nullptr) save_state(0);
 
   auto tile_ptrs = [&](int tile, T*& rs, T*& ks, float*& ws, T*& vs) {
     unsigned char* p = smem + tile % NSTAGE * Gm::STAGE;
@@ -331,12 +353,14 @@ __global__ void __launch_bounds__(Geometry<T, C, SHORT>::NT, SHORT ? 4 : 1) wkv6
       if (t < n) out[base + (size_t)(t0 + t) * stride + col0 + jl] = p[0] + bonus[t] * vj;
     };
     if (n <= TK) {
+      if (s_chk != nullptr && t0 > 0) save_state(t0);  // t0 is a multiple of TT, so of CK
       float pa[G];
       wkv_group<T, C, SHORT>(rs, ks, ws, vs, 0, n, row0, jl0, st, pa);
       finish(0, pa);
       continue;
     }
     for (int tt = 0; tt < n; tt += 2 * TK) {
+      if (s_chk != nullptr && t0 + tt > 0 && (t0 + tt) % CK == 0) save_state(t0 + tt);
       float pa[G], pb[G];
       wkv_group<T, C, SHORT>(rs, ks, ws, vs, tt, n, row0, jl0, st, pa);
       finish(tt, pa);
@@ -354,44 +378,44 @@ __global__ void __launch_bounds__(Geometry<T, C, SHORT>::NT, SHORT ? 4 : 1) wkv6
 
 template <typename T, int C, bool SHORT>
 cudaError_t launch_as(const void* r, const void* k, const void* v, const float* w, const float* u,
-                      const float* s0, float* out, float* s_fin, int B, int seq, int H,
+                      const float* s0, float* out, float* s_fin, float* s_chk, int B, int seq, int H,
                       cudaStream_t stream) {
   using Gm = Geometry<T, C, SHORT>;
   const dim3 grid(C / Gm::JB, H, B);
   wkv6_kernel<T, C, SHORT><<<grid, Gm::NT, Gm::SMEM, stream>>>(
       static_cast<const T*>(r), static_cast<const T*>(k), static_cast<const T*>(v), w, u, s0,
-      out, s_fin, seq, H);
+      out, s_fin, s_chk, seq, H);
   return cudaGetLastError();
 }
 
 template <typename T, int C>
 cudaError_t launch(const void* r, const void* k, const void* v, const float* w, const float* u,
-                   const float* s0, float* out, float* s_fin, int B, int seq, int H,
+                   const float* s0, float* out, float* s_fin, float* s_chk, int B, int seq, int H,
                    cudaStream_t stream) {
-  return seq <= SHORT_SEQ ? launch_as<T, C, true>(r, k, v, w, u, s0, out, s_fin, B, seq, H, stream)
-                          : launch_as<T, C, false>(r, k, v, w, u, s0, out, s_fin, B, seq, H, stream);
+  return seq <= SHORT_SEQ ? launch_as<T, C, true>(r, k, v, w, u, s0, out, s_fin, s_chk, B, seq, H, stream)
+                          : launch_as<T, C, false>(r, k, v, w, u, s0, out, s_fin, s_chk, B, seq, H, stream);
 }
 
 template <typename T>
 cudaError_t dispatch(const void* r, const void* k, const void* v, const float* w, const float* u,
-                     const float* s0, float* out, float* s_fin, int B, int seq, int H, int C,
+                     const float* s0, float* out, float* s_fin, float* s_chk, int B, int seq, int H, int C,
                      cudaStream_t stream) {
   switch (C) {
-    case 8: return launch<T, 8>(r, k, v, w, u, s0, out, s_fin, B, seq, H, stream);
-    case 16: return launch<T, 16>(r, k, v, w, u, s0, out, s_fin, B, seq, H, stream);
-    case 32: return launch<T, 32>(r, k, v, w, u, s0, out, s_fin, B, seq, H, stream);
-    case 64: return launch<T, 64>(r, k, v, w, u, s0, out, s_fin, B, seq, H, stream);
+    case 8: return launch<T, 8>(r, k, v, w, u, s0, out, s_fin, s_chk, B, seq, H, stream);
+    case 16: return launch<T, 16>(r, k, v, w, u, s0, out, s_fin, s_chk, B, seq, H, stream);
+    case 32: return launch<T, 32>(r, k, v, w, u, s0, out, s_fin, s_chk, B, seq, H, stream);
+    case 64: return launch<T, 64>(r, k, v, w, u, s0, out, s_fin, s_chk, B, seq, H, stream);
     default: return cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
-// dtype of r, k, v: 0 = float32, 1 = bfloat16.  s0 may be null (zero state).
-// Returns a cudaError_t (0 = launched).
-extern "C" int wkv6_forward(const void* r, const void* k, const void* v, const void* w,
-                            const void* u, const void* s0, void* out, void* s_fin, int B, int S,
-                            int H, int C, int dtype, void* stream) {
+// dtype of r, k, v: 0 = float32, 1 = bfloat16.  s0 may be null (zero state), and s_chk is
+// null for serving.  Returns a cudaError_t (0 = launched).
+static int forward(const void* r, const void* k, const void* v, const void* w, const void* u,
+                   const void* s0, void* out, void* s_fin, void* s_chk, int B, int S, int H, int C,
+                   int dtype, void* stream) {
   if (B <= 0 || S <= 0 || H <= 0 || B > 65535 || H > 65535) return (int)cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* wf = static_cast<const float*>(w);
@@ -399,10 +423,27 @@ extern "C" int wkv6_forward(const void* r, const void* k, const void* v, const v
   const float* sf = static_cast<const float*>(s0);
   float* of = static_cast<float*>(out);
   float* ff = static_cast<float*>(s_fin);
-  if (dtype == 0) return (int)dispatch<float>(r, k, v, wf, uf, sf, of, ff, B, S, H, C, st);
-  if (dtype == 1) return (int)dispatch<__nv_bfloat16>(r, k, v, wf, uf, sf, of, ff, B, S, H, C, st);
+  float* cf = static_cast<float*>(s_chk);
+  if (dtype == 0) return (int)dispatch<float>(r, k, v, wf, uf, sf, of, ff, cf, B, S, H, C, st);
+  if (dtype == 1) return (int)dispatch<__nv_bfloat16>(r, k, v, wf, uf, sf, of, ff, cf, B, S, H, C, st);
   return (int)cudaErrorInvalidValue;
 }
+
+extern "C" int wkv6_forward(const void* r, const void* k, const void* v, const void* w,
+                            const void* u, const void* s0, void* out, void* s_fin, int B, int S,
+                            int H, int C, int dtype, void* stream) {
+  return forward(r, k, v, w, u, s0, out, s_fin, nullptr, B, S, H, C, dtype, stream);
+}
+
+// The training form: also the state before every CK tokens into s_chk [B, H, ceil(S / CK), C, C].
+extern "C" int wkv6_forward_train(const void* r, const void* k, const void* v, const void* w,
+                                  const void* u, const void* s0, void* out, void* s_fin, void* s_chk,
+                                  int B, int S, int H, int C, int dtype, void* stream) {
+  if (s_chk == nullptr) return (int)cudaErrorInvalidValue;
+  return forward(r, k, v, w, u, s0, out, s_fin, s_chk, B, S, H, C, dtype, stream);
+}
+
+extern "C" int wkv6_checkpoint() { return CK; }
 
 extern "C" const char* wkv6_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

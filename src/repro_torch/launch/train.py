@@ -19,7 +19,12 @@ published by MEU, run name ``--run``; the JSON then also gives the steps an
 SDS search finds (``ckpt_steps_discovered_via_sds``) and each save's accounting
 (``ckpt_saves``: bytes, pack, write and publish seconds, MEU RPCs).  Not ported yet, and
 refused with a non-zero exit: the cross-pod modes other than ``auto``
-(ROADMAP.md queue 1, item 6).
+(ROADMAP.md queue 1, item 6).  On the card a model whose f32 master weights,
+gradients and two AdamW moments (16 bytes a parameter) alone pass the card's
+free memory is refused before anything is drawn: rwkv6-7b (7.27 B parameters,
+116 GB) and olmoe-1b-7b (6.92 B, 111 GB) train on one card only cut in depth
+(``build_trainer(..., n_layers=...)``, as ``chip_smoke.py`` does), or as
+``--smoke``.
 """
 
 from __future__ import annotations
@@ -39,11 +44,26 @@ from ..data import ShardedPipeline, SyntheticLM
 from ..device import resolve_device
 from ..kernels._build import build_all
 from ..models import Model
+from ..models.transformer import count_params, init_lm
 from ..optim import AdamW, AdamWConfig
 from ..train import CheckpointManager, Trainer, TrainerConfig
 from .serve import _profiled, _write_profile
 
-__all__ = ["build_trainer", "main"]
+__all__ = ["build_trainer", "check_state_fits", "main"]
+
+STATE_BYTES_PER_PARAM = 16  # the f32 master weight, its gradient and the two AdamW moments
+
+
+def check_state_fits(cfg, free_bytes: int) -> None:
+    """Raise before anything is drawn when the training state alone needs more than ``free_bytes``
+    (activations come on top of it)."""
+    n = count_params(init_lm(cfg, None, "meta"))
+    need = STATE_BYTES_PER_PARAM * n
+    if need > free_bytes:
+        raise RuntimeError(
+            f"{cfg.name} ({cfg.n_layers} layers, {n} parameters) needs {need / 1e9:.1f} GB for its f32 master "
+            f"weights, gradients and AdamW moments alone, more than the {free_bytes / 1e9:.1f} GB free on the card; "
+            f"nothing was drawn. Train a depth cut through build_trainer(n_layers=...), as chip_smoke.py does.")
 
 
 def build_trainer(arch: str, *, smoke: bool = False, steps: int = 50, seq_len: int = 128, global_batch: int = 8,
@@ -95,6 +115,10 @@ def main(argv=None) -> int:
         collab.add_datacenter("pod0", n_dtns=2)
         ckpt = CheckpointManager(collab, run=args.run, home_dc="pod0")
     try:
+        device = resolve_device(args.device)
+        if device.type == "cuda":
+            cfg = get_config(args.arch)
+            check_state_fits(smoke_variant(cfg) if args.smoke else cfg, torch.cuda.mem_get_info(device)[0])
         trainer = build_trainer(args.arch, smoke=args.smoke, steps=args.steps, seq_len=args.seq_len,
                                 global_batch=args.global_batch, microbatches=args.microbatches, lr=args.lr,
                                 seed=args.seed, device=args.device, ckpt=ckpt, ckpt_every=args.ckpt_every)

@@ -7,10 +7,12 @@ each expert's queue filled in token order, and tokens beyond an expert's
 capacity dropped, exactly as the reference drops them.  The three products
 (dispatch, the expert FFN, combine) are plain large products, which the
 reference leaves to XLA outside any Pallas kernel; here they are
-``torch.einsum``.  The load-balance loss is computed as in the reference;
-serving ignores it.  Only the swiglu experts without a shared expert are
-ported, which is what jamba runs; llama4's shared expert waits for its slice
-(ROADMAP queue 1 item 5).
+``torch.einsum``.  The load-balance loss is computed as in the reference,
+with its gradient through the router probabilities, and the output's
+gradient reaches the router through the gates; serving ignores the loss.
+Only the swiglu experts without a shared expert are ported, which is what
+jamba and olmoe run; llama4's shared expert waits for its slice (ROADMAP
+queue 1 item 5).
 """
 
 from __future__ import annotations
@@ -99,7 +101,8 @@ def _moe_dispatch(p: Params, x: torch.Tensor, cfg, *, dtype) -> Tuple[torch.Tens
         within = (pos_in_e < C) & (onehot_e > 0)                                # over capacity: dropped
         slot = (pos_in_e[..., None] == slots) & within[..., None]               # [B,S,E,C]
         dispatch |= slot
-        combine += slot.float() * gates[..., k, None, None]
+        # the gate where the slot is taken: autograd keeps the bool slot, not an f32 copy of it
+        combine += torch.where(slot, gates[..., k, None, None], 0.0)
         used += (onehot_e * within).sum(dim=1)
 
     expert_in = torch.einsum("bsec,bsd->ebcd", dispatch.to(dtype), x.to(dtype))

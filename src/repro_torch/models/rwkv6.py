@@ -8,7 +8,10 @@ state S ∈ ℝ^{C×C}) the WKV recurrence is
 
 with w_t = exp(−exp(w₀ + LoRA(x_t))), computed in f32.  It runs through
 :func:`repro_torch.kernels.wkv6.wkv6`: the CUDA kernel on a CUDA tensor, the
-plain chunked version on a CPU tensor.  The reference's simplification is
+plain chunked version on a CPU tensor; with inputs that need grad (training,
+where the blocks run without a state) its autograd Function takes the
+gradient into w through the reference's ``log(max(w, 1e-38))``: the backward
+kernel on the card, ``wkv6_bwd_plain`` on the CPU.  The reference's simplification is
 kept: token-shift lerps use learned per-channel μ, and the decay keeps its
 LoRA.  ``mu``, ``decay_base``, ``bonus`` and the group-norm leaves stay in
 their f32 master dtype and are cast at use, as in the reference.

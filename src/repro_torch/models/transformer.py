@@ -20,10 +20,13 @@ a ring cache, the reference keeps the last T keys at slots ``0..T-1`` while
 decode writes slot ``pos % T``; here position p always sits at slot ``p % T``
 (ROADMAP.md queue 3).
 
-Training (``lm_hidden``, ``train_loss``) is ported for stacks of attention
-layers with dense FFNs (gemma2, codeqwen, stablelm, nemotron); the f32
-master weights stay the autograd leaves and every use casts them, so
-gradients run through the casts.
+Training (``lm_hidden``, ``train_loss``) is ported for attention and RWKV-6
+mixers with dense, MoE and channel-mix FFNs (gemma2, codeqwen, stablelm,
+nemotron, rwkv6, olmoe); Mamba mixers wait for the selective scan's backward
+(jamba).  The f32 master weights stay the autograd leaves and every use
+casts them, so gradients run through the casts.  Each MoE layer's
+load-balance loss is summed over the layers and units into the loss, as the
+reference's unit body carries it.
 ``remat="unit"`` recomputes each unit in the backward
 (``torch.utils.checkpoint``, non-reentrant: only the unit's inputs are saved).
 """
@@ -162,22 +165,27 @@ def _rwkv_mix(lp, h, lc, cfg, dt):
 def _block(lp, spec, lc, x, mix, cfg, dt):
     """Residual add of the mixer output, then the FFN block (sandwich norms if set).
 
-    The MoE's load-balance loss is a training term; serving drops it.
+    Returns (x, aux): aux is the MoE's load-balance loss, None for the other
+    FFNs; it is a training term, which serving drops.  Without a cache (``lc``
+    None: training) the channel-mix starts from a zero shift.
     """
     if cfg.post_block_norm:
         mix = norm(lp["norm1_post"], mix, kind=cfg.norm)
     x = x + mix
     h = norm(lp["norm2"], x, kind=cfg.norm)
-    if spec.ffn == "rwkv_cmix":
+    aux = None
+    if spec.ffn == "rwkv_cmix" and lc is None:
+        f, _ = rwkv_cmix(lp["ffn"], h, cfg, dtype=dt)
+    elif spec.ffn == "rwkv_cmix":
         f, st = rwkv_cmix(lp["ffn"], h, cfg, dtype=dt, state={"shift": lc["cshift"]})
         lc["cshift"].copy_(st["shift"])
     elif spec.ffn == "moe":
-        f, _ = moe_layer(lp["ffn"], h, cfg, dtype=dt)
+        f, aux = moe_layer(lp["ffn"], h, cfg, dtype=dt)
     else:
         f = mlp(lp["ffn"], h, activation=cfg.activation, dtype=dt)
     if cfg.post_block_norm:
         f = norm(lp["norm2_post"], f, kind=cfg.norm)
-    return x + f
+    return x + f, aux
 
 
 # ---------------------------------------------------------------------------
@@ -186,26 +194,32 @@ def _block(lp, spec, lc, x, mix, cfg, dt):
 
 
 def _check_trainable(cfg) -> None:
-    for spec in cfg.pattern:
-        if spec.mixer not in ("attn", "attn_local") or spec.ffn != "dense":
-            raise NotImplementedError(
-                f"{cfg.name}: training {spec.mixer} mixers with {spec.ffn} FFNs is not ported yet; it needs the "
-                f"WKV-6 and selective-scan backwards and the MoE's aux loss (ROADMAP.md queue 1, item 3g)")
+    if any(spec.mixer == "mamba" for spec in cfg.pattern):
+        raise NotImplementedError(
+            f"{cfg.name}: training Mamba mixers is not ported yet; it needs the selective scan's backward, "
+            f"which waits for jamba's training on sharded state (ROADMAP.md queue 1, item 3g)")
     if cfg.remat == "dots":
         raise NotImplementedError(
             f"{cfg.name}: remat='dots' (keep the dense products, recompute the rest) is not ported yet "
             f"(ROADMAP.md queue 1, item 3h)")
 
 
-def _train_unit(x: torch.Tensor, unit_params, positions: torch.Tensor, cfg) -> torch.Tensor:
-    """One unit of the training forward: ``src/repro/models/transformer.py:178-197``."""
+def _train_unit(x: torch.Tensor, aux: torch.Tensor, unit_params, positions: torch.Tensor,
+                cfg) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One unit of the training forward, ``src/repro/models/transformer.py:178-197``: the carry
+    (x, aux) through each pattern position, each MoE layer's load-balance loss added to aux."""
     dt = _dtype(cfg)
     for i, spec in enumerate(cfg.pattern):
         lp = unit_params[f"pos{i}"]
         h = norm(lp["norm1"], x, kind=cfg.norm)
-        mix, _ = attention_layer(lp["mixer"], h, positions, cfg, kind=spec.mixer, dtype=dt)
-        x = _block(lp, spec, None, x, mix, cfg, dt)
-    return x
+        if spec.mixer == "rwkv":
+            mix, _ = rwkv_tmix(lp["mixer"], h, cfg, dtype=dt)
+        else:
+            mix, _ = attention_layer(lp["mixer"], h, positions, cfg, kind=spec.mixer, dtype=dt)
+        x, aux_i = _block(lp, spec, None, x, mix, cfg, dt)
+        if aux_i is not None:
+            aux = aux + aux_i
+    return x, aux
 
 
 def _unit_trees(tree, n: int):
@@ -223,18 +237,21 @@ def _unit_trees(tree, n: int):
 
 
 def lm_hidden(params, batch: Dict[str, torch.Tensor], cfg) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Embeddings → units → final norm.  Returns (hidden, moe_aux); the aux is 0 for dense FFNs."""
+    """Embeddings → units → final norm.  Returns (hidden, moe_aux): the MoE layers' load-balance
+    losses summed over layers and units, 0 without MoE FFNs."""
     _check_trainable(cfg)
     x = _embed_inputs(params, batch, cfg)
     B, S = batch["tokens"].shape
     positions = torch.arange(S, device=x.device).expand(B, S)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for unit in _unit_trees(params["units"], cfg.n_units):
         if cfg.remat == "unit":
-            x = checkpoint(_train_unit, x, unit, positions, cfg, use_reentrant=False, preserve_rng_state=False)
+            x, aux = checkpoint(_train_unit, x, aux, unit, positions, cfg, use_reentrant=False,
+                                preserve_rng_state=False)
         else:
-            x = _train_unit(x, unit, positions, cfg)
+            x, aux = _train_unit(x, aux, unit, positions, cfg)
     x = norm(params["final_norm"], x, kind=cfg.norm)
-    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+    return x, aux
 
 
 def _chunk_nll(head, x: torch.Tensor, targets: torch.Tensor, cfg) -> torch.Tensor:
@@ -334,7 +351,7 @@ def decode_step(params, cache: Dict, token: torch.Tensor, pos, cfg):
                     lp["mixer"], h, lc["k"], lc["v"], pos % T if rolling else pos, cfg,
                     kind=spec.mixer, dtype=dt, rolling=rolling, abs_pos=pos,
                 )
-            x = _block(lp, spec, lc, x, mix, cfg, dt)
+            x, _ = _block(lp, spec, lc, x, mix, cfg, dt)
     x = norm(params["final_norm"], x, kind=cfg.norm)
     return cache, _logits(params, x, cfg)
 
@@ -375,6 +392,6 @@ def prefill(params, batch: Dict[str, torch.Tensor], cfg, *, max_len: int):
                         c[:, :S] = new.to(c.dtype)
                     else:  # ring: position S-T+j goes to slot (S-T+j) % T
                         c.copy_(torch.roll(new[:, S - T:], shifts=S % T, dims=1).to(c.dtype))
-            x = _block(lp, spec, lc, x, mix, cfg, dt)
+            x, _ = _block(lp, spec, lc, x, mix, cfg, dt)
     x = norm(params["final_norm"], x, kind=cfg.norm)
     return cache, _logits(params, x[:, -1:, :], cfg)

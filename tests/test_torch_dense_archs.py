@@ -47,7 +47,7 @@ from repro_torch.serve import ServeConfig, ServeEngine
 from repro_torch.train import CheckpointManager, build_train_step, init_state
 
 UNTIED = ["codeqwen1.5-7b", "stablelm-3b", "nemotron-4-15b", "olmoe-1b-7b"]
-DENSE = UNTIED[:3]  # olmoe's MoE training waits for ROADMAP.md queue 1 item 3g
+DENSE = UNTIED[:3]  # olmoe trains in tests/test_torch_ssm_moe_train.py, with its MoE
 # parameters by JAX eval_shape of Model.init, lm_head included
 PARAM_COUNTS = {"codeqwen1.5-7b": 8_190_038_016, "stablelm-3b": 2_795_688_960,
                 "nemotron-4-15b": 15_628_775_424, "olmoe-1b-7b": 6_919_100_416}

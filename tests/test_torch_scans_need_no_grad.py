@@ -1,18 +1,20 @@
-"""WKV-6 and the selective scan have no CUDA backward yet: a CUDA input that needs grad raises.
+"""The selective scan has no CUDA backward yet: a CUDA input that needs grad raises; WKV-6 has one.
 
-Their kernels write results through ``ctypes``, which autograd cannot see; a
-result with no ``grad_fn`` would silently give the inputs no gradient.  Until
-the backwards are ported (ROADMAP.md queue 2, items 2 and 3), the wrappers
-refuse such a call on the card.  On the CPU the plain versions stay ordinary
-differentiable PyTorch, and a card call under ``torch.no_grad()`` (serving)
-is unchanged.
+The scan kernel writes its results through ``ctypes``, which autograd cannot
+see; a result with no ``grad_fn`` would silently give the inputs no gradient.
+Until its backward is ported (ROADMAP.md queue 2, item 2), the wrapper refuses
+such a call on the card.  WKV-6 goes through its autograd Function instead:
+on the card its gradients are the backward kernel's, equal to
+``wkv6_bwd_plain``'s at the scan tolerance.  On the CPU both plain versions
+stay differentiable, and a card call under ``torch.no_grad()`` (serving) is
+unchanged.
 """
 
 import pytest
 import torch
 
 from repro_torch.kernels.mamba_scan import mamba_scan
-from repro_torch.kernels.wkv6 import wkv6
+from repro_torch.kernels.wkv6 import wkv6, wkv6_bwd, wkv6_bwd_plain
 
 
 def _wkv_inputs(device, grad):
@@ -52,17 +54,48 @@ def test_plain_mamba_scan_stays_differentiable_on_the_cpu():
 
 @pytest.mark.gpu
 def test_cuda_wkv6_refuses_inputs_that_need_grad():
+    """No longer refused: the CUDA WKV's gradients (training form, backward kernel) equal wkv6_bwd_plain's at
+    the scan tolerance (atol 1e-4 x rms, rtol 1e-4), each kernel launched once; under torch.no_grad() the
+    serving form runs as before, with no graph."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
-    inputs = _wkv_inputs("cuda", True)
-    before = wkv6.launches
-    with pytest.raises(NotImplementedError, match="queue 2, item 3"):
-        wkv6(*inputs, chunk=4)
-    assert wkv6.launches == before
-    with torch.no_grad():
-        out, _ = wkv6(*inputs, chunk=4)
+    r, k, v, w, u = _wkv_inputs("cuda", True)
+    for x in (k, v, w, u):
+        x.requires_grad_(True)
+    g = torch.Generator(device="cuda").manual_seed(1)
+    s0 = torch.randn((1, 2, 16, 16), generator=g, device="cuda").requires_grad_()
+    dout = torch.randn((1, 8, 2, 16), generator=g, device="cuda")
+    ds_fin = torch.randn((1, 2, 16, 16), generator=g, device="cuda")
+    before = (wkv6.launches, wkv6.launches_train, wkv6_bwd.launches)
+    out, state = wkv6(r, k, v, w, u, chunk=4, s0=s0)
+    grads = torch.autograd.grad((out * dout).sum() + (state * ds_fin).sum(), (r, k, v, w, u, s0))
     torch.cuda.synchronize()
-    assert wkv6.launches == before + 1 and out.grad_fn is None
+    assert (wkv6.launches, wkv6.launches_train, wkv6_bwd.launches) == tuple(n + 1 for n in before)
+    want = wkv6_bwd_plain(*(x.detach() for x in (r, k, v, w, u, s0)), dout, ds_fin)
+    for got, plain in zip(grads, want):
+        rms = plain.pow(2).mean().sqrt().item()
+        torch.testing.assert_close(got, plain, atol=1e-4 * rms, rtol=1e-4)
+    with torch.no_grad():
+        out, _ = wkv6(r, k, v, w, u, chunk=4)
+    torch.cuda.synchronize()
+    assert wkv6.launches == before[0] + 2 and wkv6.launches_train == before[1] + 1 and out.grad_fn is None
+
+
+@pytest.mark.gpu
+def test_cuda_wkv6_backward_is_bitwise_repeatable():
+    """The backward kernel adds no atomics: two calls on the same inputs give the same bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from repro_torch.kernels.wkv6 import _launch, wkv6_bwd as bwd
+
+    g = torch.Generator(device="cuda").manual_seed(2)
+    r, k, v = (torch.randn((2, 300, 4, 64), generator=g, device="cuda").to(torch.bfloat16) for _ in range(3))
+    w = torch.rand((2, 300, 4, 64), generator=g, device="cuda") * 0.5 + 0.45
+    u = 0.1 * torch.randn((4, 64), generator=g, device="cuda")
+    dout = torch.randn((2, 300, 4, 64), generator=g, device="cuda")
+    _, _, s_chk = _launch(r, k, v, w, u, None, train=True)
+    first, second = bwd(r, k, v, w, u, s_chk, dout), bwd(r, k, v, w, u, s_chk, dout)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
 
 
 @pytest.mark.gpu

@@ -203,16 +203,21 @@ def test_entry_points_refuse_to_fall_back_to_cpu(pair, monkeypatch):
 
 
 def test_unported_layers_raise():
-    """Every mixer and FFN kind of the decoder-only family serves now, with a tied or an untied head;
-    what is left refuses and names its ROADMAP.md item instead of running half a model: training a
-    MoE (olmoe, item 3g) and a MoE with a shared expert (llama4, item 5)."""
+    """Every mixer and FFN kind of the decoder-only family serves now, with a tied or an untied head,
+    and a MoE trains (olmoe); what is left refuses and names its ROADMAP.md item instead of running
+    half a model: training a Mamba mixer (jamba, item 3g) and a MoE with a shared expert (llama4,
+    item 5)."""
     olmoe = smoke_variant(get_config("olmoe-1b-7b"))
     model = Model(olmoe, device="cpu")
     params = model.init(torch.Generator().manual_seed(0))
     assert "lm_head" in params  # the untied head is drawn and served
     batch = {"tokens": np.zeros((1, 16), np.int32), "targets": np.zeros((1, 16), np.int32)}
+    loss, metrics = model.train_loss(params, batch)
+    assert torch.isfinite(loss) and float(metrics["moe_aux"]) > 0
+    jamba = smoke_variant(get_config("jamba-v0.1-52b"))
+    jamba_model = Model(jamba, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item 3g"):
-        model.train_loss(params, batch)
+        jamba_model.train_loss(jamba_model.init(torch.Generator().manual_seed(0)), batch)
     shared = olmoe.replace(moe=dataclasses.replace(olmoe.moe, shared_expert=True))
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 5"):
         Model(shared, device="cpu").init(torch.Generator().manual_seed(0))
