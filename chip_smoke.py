@@ -41,7 +41,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
               bitwise the serving form on out and final state, its first saved state s0; the
               backward kernel against wkv6_bwd_plain at the smoke C = 16 (bf16, and f32 with s0
               and ds_fin), rwkv6's training shape (bf16 B4 S2048 H64 C64), a ragged S = 300 with
-              s0 and ds_fin and f32 at S = 320: f32 gradients, and dw, du and ds0 in every dtype, at
+              s0 and ds_fin and f32 at S = 320, and those last two again with decays near the
+              clamp (shares of w at 1e-36, 1e-30, 1e-38 itself, 1e-40 and 0), where dw must be
+              exactly 0 at and under 1e-38: f32 gradients, and dw, du and ds0 in every dtype, at
               the scan gate, bf16 dr, dk, dv at the backward's bf16 gate (2e-2 x rms, rtol 2e-2);
               two calls bitwise equal; kernel, plain and bound ms of both kernels; the backward
               must beat its plain version at the training shape;
@@ -132,7 +134,7 @@ Phases, each of which raises on failure (the script then exits non-zero):
               attention never;
 15. moe-train — olmoe-1b-7b trained as in phase 9, cut to 6 of its 16 layers: per step flash
               attention's forward exactly 12 times and each backward kernel 6 times (hd 128), the
-              MoE's load-balance loss in the loss;
+              MoE's load-balance loss in the loss, finite and positive at every step;
 16. library — SDPA's backward through autograd at each backward case (softcap 0, the same
               mask; is_causal for a plain causal one), the backward's library yardstick.  It runs
               last: autograd leaves a cuBLAS workspace on its own thread, which would raise every
@@ -836,21 +838,37 @@ WKV_GRADS = ("dr", "dk", "dv", "dw", "du", "ds0")
 def wkv6_bwd_cases():
     """(label, dtype, B, S, H, C, s0 and ds_fin given): the smoke C = 16 in bf16 and (with s0 and ds_fin)
     f32; rwkv6's training shape (bf16 B4 S2048 H64 C64, no s0 or ds_fin, as training calls it); a ragged
-    S = 300 with s0 and ds_fin (a last chunk of 12 tokens); f32 at S = 320."""
+    S = 300 with s0 and ds_fin (a last chunk of 12 tokens); f32 at S = 320.  Then decays near the clamp
+    (labels ending in "clamp", see WKV_NEAR_CLAMP) in f32 and bf16, appended so that the earlier cases keep
+    their seeds."""
     return [("smoke", "bfloat16", 2, 64, 4, 16, False),
             ("smoke", "float32", 2, 64, 4, 16, True),
             ("rwkv6-train", "bfloat16", 4, 2048, 64, 64, False),
             ("rwkv6-ragged", "bfloat16", 1, 300, 64, 64, True),
-            ("rwkv6-f32", "float32", 2, 320, 64, 64, True)]
+            ("rwkv6-f32", "float32", 2, 320, 64, 64, True),
+            ("rwkv6-clamp", "float32", 2, 320, 64, 64, True),
+            ("rwkv6-ragged-clamp", "bfloat16", 1, 300, 64, 64, True)]
 
 
-def wkv6_bwd_inputs(torch, dtype, B, S, H, C, carried, seed):
-    """r, k, v, w, u as wkv6_inputs draws them; s0 and ds_fin ~ N(0, 1) when ``carried``; dout ~ N(0, 1), f32."""
+# decays near the reference's clamp max(w, 1e-38), each on a share of w: (share, value).  Above it 1e-36 and
+# 1e-30; at it the f32 1e-38 itself, where dw must already be 0 (w > 1e-38 is strict); under it 1e-40 and 0.
+WKV_W_MIN = 1e-38
+WKV_NEAR_CLAMP = ((0.10, 1e-36), (0.05, 1e-30), (0.05, WKV_W_MIN), (0.05, 1e-40), (0.05, 0.0))
+
+
+def wkv6_bwd_inputs(torch, dtype, B, S, H, C, carried, seed, near_clamp=False):
+    """r, k, v, w, u as wkv6_inputs draws them; s0 and ds_fin ~ N(0, 1) when ``carried``; dout ~ N(0, 1), f32.
+    With ``near_clamp`` the shares of w in WKV_NEAR_CLAMP are then set to their values."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
     r, k, v, w, u = wkv6_inputs(torch, gen, dtype, B, S, H, C)
     s0 = torch.randn((B, H, C, C), generator=gen, device="cuda") if carried else None
     dout = torch.randn((B, S, H, C), generator=gen, device="cuda")
     ds_fin = torch.randn((B, H, C, C), generator=gen, device="cuda") if carried else None
+    if near_clamp:
+        m, lo = torch.rand(w.shape, generator=gen, device="cuda"), 0.0
+        for share, value in WKV_NEAR_CLAMP:
+            w = torch.where((m >= lo) & (m < lo + share), torch.full_like(w, value), w)
+            lo += share
     return r, k, v, w, u, s0, dout, ds_fin
 
 
@@ -893,7 +911,11 @@ def run_wkv6_bwd_cases(torch, card):
 
     rows = []
     for seed, (label, dtype, B, S, H, C, carried) in enumerate(wkv6_bwd_cases(), start=500):
-        r, k, v, w, u, s0, dout, ds_fin = wkv6_bwd_inputs(torch, dtype, B, S, H, C, carried, seed)
+        near_clamp = label.endswith("clamp")
+        # near the clamp the chunked plain forward's f32 cumulative log-decays reach thousands and lose the
+        # scan gate's precision in their differences; at chunk 1 it is the recurrence itself
+        plain_chunk = 1 if near_clamp else 256
+        r, k, v, w, u, s0, dout, ds_fin = wkv6_bwd_inputs(torch, dtype, B, S, H, C, carried, seed, near_clamp)
         name = f"{label} {dtype} B{B} S{S} H{H} C{C}" + (" s0 ds_fin" if carried else "")
         out, s_fin = wk._launch(r, k, v, w, u, s0)
         out_t, s_fin_t, s_chk = wk._launch(r, k, v, w, u, s0, train=True)
@@ -901,7 +923,7 @@ def run_wkv6_bwd_cases(torch, card):
         if not (torch.equal(out, out_t) and torch.equal(s_fin, s_fin_t) and torch.equal(s_chk[:, :, 0], first)):
             raise AssertionError(f"{name}: the training form's out / final state differ from the serving form's, "
                                  f"or its first saved state is not s0")
-        plain_out, plain_state = wk.wkv6_plain(r, k, v, w, u, chunk=256, s0=s0)
+        plain_out, plain_state = wk.wkv6_plain(r, k, v, w, u, chunk=plain_chunk, s0=s0)
         fwd_err = max(check_close(f"{name} training form", out_t, plain_out, scan_tol(plain_out)),
                       check_close(f"{name} training form, final state", s_fin_t, plain_state, scan_tol(plain_state)))
         del plain_out, plain_state
@@ -922,14 +944,21 @@ def run_wkv6_bwd_cases(torch, card):
                 raise AssertionError(f"{name} {g}: {got.dtype} {tuple(got.shape)}, plain {want.dtype} "
                                      f"{tuple(want.shape)}")
             errs[g] = check_close(f"{name} {g}", got, want, tols[g])
+        clamped = None
+        if near_clamp:  # dw exactly 0 where w <= 1e-38, as the plain version's
+            under = w <= WKV_W_MIN
+            clamped = dict(elements=int(under.sum()), at_w_min=int((w == WKV_W_MIN).sum()),
+                           nonzero_dw=int((grads[3][under] != 0).sum()), plain_nonzero_dw=int((plain[3][under] != 0).sum()))
+            if not clamped["at_w_min"] or clamped["nonzero_dw"] or clamped["plain_nonzero_dw"]:
+                raise AssertionError(f"{name}: dw where w <= 1e-38 must be exactly 0: {clamped}")
         kernel_ms = cuda_ms(torch, lambda: wk.wkv6_bwd(r, k, v, w, u, s_chk, dout, ds_fin))
         train_ms = cuda_ms(torch, lambda: wk._launch(r, k, v, w, u, s0, train=True))
         serve_ms = cuda_ms(torch, lambda: wk._launch(r, k, v, w, u, s0))
         plain_ms = cuda_ms(torch, lambda: wk.wkv6_bwd_plain(r, k, v, w, u, s0, dout, ds_fin), max_reps=2)
-        plain_fwd_ms = cuda_ms(torch, lambda: wk.wkv6_plain(r, k, v, w, u, chunk=256, s0=s0), max_reps=2)
+        plain_fwd_ms = cuda_ms(torch, lambda: wk.wkv6_plain(r, k, v, w, u, chunk=plain_chunk, s0=s0), max_reps=2)
         bounds = wkv6_train_bounds(dtype, B, S, H, C, s0 is not None, ds_fin is not None)
         row = dict(case=name, label=label, dtype=dtype, seed=seed, max_abs_err=errs, tol=tols, bitwise_repeat=bitwise,
-                   forward_max_abs_err=fwd_err,
+                   forward_max_abs_err=fwd_err, near_clamp=clamped,
                    kernel_ms=kernel_ms, plain_ms=plain_ms, plain="wkv6_bwd_plain (token by token, f32)",
                    forward_train_ms=train_ms, forward_serve_ms=serve_ms, plain_forward_ms=plain_fwd_ms,
                    bound_ms={n_: b[0] for n_, b in bounds.items()}, bound_by={n_: b[1] for n_, b in bounds.items()},
@@ -1471,6 +1500,17 @@ def train_phase(torch, card, arch="gemma2-2b", phase="train", keep_final=False, 
                              f"params {dtypes}")
     n_attn = cfg.n_units * sum(spec.mixer in ("attn", "attn_local") for spec in cfg.pattern)
     n_rwkv = cfg.n_units * sum(spec.mixer == "rwkv" for spec in cfg.pattern)
+    has_moe = any(spec.ffn == "moe" for spec in cfg.pattern)
+    auxes = []
+    if has_moe:
+        train_loss = trainer.model.train_loss
+
+        def recording(*args, **kw):  # each step's load-balance loss, read after the run
+            loss, metrics = train_loss(*args, **kw)
+            auxes.append(metrics["moe_aux"].detach())
+            return loss, metrics
+
+        trainer.model.train_loss = recording
     per_step = launch_counts(n_flash=2 * n_attn, n_bwd=n_attn,   # forward, recomputed forward, backward
                              n_wkv6=2 * n_rwkv, n_wkv6_train=2 * n_rwkv, n_wkv6_bwd=n_rwkv)
     torch.cuda.synchronize()
@@ -1491,12 +1531,16 @@ def train_phase(torch, card, arch="gemma2-2b", phase="train", keep_final=False, 
     norms = [m["grad_norm"] for m in log_rows]
     if not all(math.isfinite(x) for x in losses + norms) or not losses[-1] < losses[0]:
         raise AssertionError(f"{phase}: losses {losses}, grad norms {norms}: not all finite, or not falling")
+    auxes = [float(a) for a in auxes]
+    if has_moe and (len(auxes) != TRAIN["steps"] * TRAIN["microbatches"]
+                    or not all(math.isfinite(a) and a > 0 for a in auxes)):
+        raise AssertionError(f"{phase}: MoE load-balance losses {auxes}: not one finite positive value a step")
     tokens = TRAIN["global_batch"] * TRAIN["seq_len"]
     step_ms = [1e3 * m["seconds"] for m in log_rows]
     stats = dict(model=cfg.name, layers=cfg.n_layers, params=sum(t.numel() for t in leaves(params)),
                  full_depth_layers=get_config(arch).n_layers,
                  remat=cfg.remat, batch=TRAIN["global_batch"], seq=TRAIN["seq_len"], steps=len(log_rows),
-                 losses=losses, grad_norms=norms, lrs=[m["lr"] for m in log_rows], step_ms=step_ms,
+                 losses=losses, grad_norms=norms, moe_aux=auxes if has_moe else None, lrs=[m["lr"] for m in log_rows], step_ms=step_ms,
                  step_ms_after_first=sum(step_ms[1:]) / len(step_ms[1:]),
                  tok_per_s_after_first=tokens * len(step_ms[1:]) / (sum(step_ms[1:]) / 1e3),
                  wall_s=result["wall_s"], kernel_launches=final, launches_per_step=per_step,

@@ -80,11 +80,12 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "wkv6_common.cuh"  // CK
+
 namespace {
 
 constexpr int NSTAGE = 2;     // tiles in the shared-memory ring: NSTAGE - 1 in flight while one is computed
 constexpr int SHORT_SEQ = 8;  // calls of at most this many tokens (decode steps) take the short patch
-constexpr int CK = 16;        // tokens between the states the training form saves (csrc/wkv6_bwd.cu reads them)
 
 // Each thread's patch of the state, RI rows x JC columns, and the JB columns of a block.
 // The short patch (a quarter of one column's rows per thread) halves the threads of the

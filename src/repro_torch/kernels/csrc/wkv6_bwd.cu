@@ -50,9 +50,10 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "wkv6_common.cuh"  // CK
+
 namespace {
 
-constexpr int CK = 16;           // tokens between the forward's saved states: one tile
 constexpr int SUB = 4;           // tokens whose old states a thread keeps in registers
 constexpr int NSUB = CK / SUB;
 constexpr float W_MIN = 1e-38f;  // the reference's clamp of w before its log
@@ -450,8 +451,6 @@ extern "C" int wkv6_backward(const void* r, const void* k, const void* v, const 
     return (int)dispatch<__nv_bfloat16>(r, k, v, wf, uf, cf, df, ff, dr, dk, dv, dwf, duf, d0f, B, S, H, C, st);
   return (int)cudaErrorInvalidValue;
 }
-
-extern "C" int wkv6_bwd_checkpoint() { return CK; }
 
 extern "C" const char* wkv6_bwd_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

@@ -50,7 +50,7 @@ __all__ = ["wkv6", "wkv6_plain", "wkv6_bwd", "wkv6_bwd_plain", "CHECKPOINT"]
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (8, 16, 32, 64)  # the kernels' instantiations
-CHECKPOINT = 16               # tokens between the states the training form saves (csrc/wkv6.cu's CK)
+CHECKPOINT = 16               # tokens between the states the training form saves (CK, csrc/wkv6_common.cuh)
 _W_MIN = 1e-38                # the reference's clamp of w before its log
 
 
@@ -138,19 +138,18 @@ def wkv6_bwd_plain(
         dv_t = dS_tᵀ k_t + (r_t·(u∘k_t)) dout_t          dw_t = rowsum(dS_t ∘ S_{t-1})
         du = Σ_t r_t∘k_t (v_t·dout_t)                     dS_{t-1} = w_t∘dS_t + r_t ⊗ dout_t
 
-    dw is 0 where w <= 1e-38 (the reference's clamp).  The old states are
-    recomputed forward from the state saved every ``CHECKPOINT`` tokens, never by
-    dividing by w, which the model's decays bring close to 0.  All in f32.
+    dw is 0 where w <= 1e-38 (the reference's clamp).  One forward sweep keeps
+    every old state, never rebuilt by dividing by w, which the model's decays
+    bring close to 0.  All in f32.
     """
     B, S, H, C = r.shape
     rf, kf, vf, wf, df = (x.float() for x in (r, k, v, w, dout))
     uf = u.float()
     zero = torch.zeros((B, H, C, C), dtype=torch.float32, device=r.device)
     state = zero if s0 is None else s0.float()
-    starts = []
+    old = []
     for t in range(S):
-        if t % CHECKPOINT == 0:
-            starts.append(state)
+        old.append(state)
         state = wf[:, t, :, :, None] * state + kf[:, t, :, :, None] * vf[:, t, :, None, :]
 
     vd = (vf * df).sum(-1, keepdim=True)                      # v_t · dout_t   [B, S, H, 1]
@@ -159,19 +158,12 @@ def wkv6_bwd_plain(
     dv = (rf * uf * kf).sum(-1, keepdim=True) * df
     dw = torch.empty_like(wf)
     ds = zero if ds_fin is None else ds_fin.float()
-    for c in reversed(range(len(starts))):
-        t0, t1 = c * CHECKPOINT, min(S, (c + 1) * CHECKPOINT)
-        old, state = [], starts[c]
-        for t in range(t0, t1):
-            old.append(state)
-            state = wf[:, t, :, :, None] * state + kf[:, t, :, :, None] * vf[:, t, :, None, :]
-        for t in reversed(range(t0, t1)):
-            prev = old[t - t0]
-            dr[:, t] += torch.einsum("bhij,bhj->bhi", prev, df[:, t])
-            dk[:, t] += torch.einsum("bhij,bhj->bhi", ds, vf[:, t])
-            dv[:, t] += torch.einsum("bhij,bhi->bhj", ds, kf[:, t])
-            dw[:, t] = (ds * prev).sum(-1)
-            ds = wf[:, t, :, :, None] * ds + rf[:, t, :, :, None] * df[:, t, :, None, :]
+    for t in reversed(range(S)):
+        dr[:, t] += torch.einsum("bhij,bhj->bhi", old[t], df[:, t])
+        dk[:, t] += torch.einsum("bhij,bhj->bhi", ds, vf[:, t])
+        dv[:, t] += torch.einsum("bhij,bhi->bhj", ds, kf[:, t])
+        dw[:, t] = (ds * old[t]).sum(-1)
+        ds = wf[:, t, :, :, None] * ds + rf[:, t, :, :, None] * df[:, t, :, None, :]
     du = (rf * kf * vd).sum(dim=(0, 1))
     dw = torch.where(wf > _W_MIN, dw, torch.zeros_like(dw))
     return dr.to(r.dtype), dk.to(k.dtype), dv.to(v.dtype), dw, du, ds
@@ -190,7 +182,7 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.wkv6_error_string.argtypes = [ctypes.c_int]
     lib.wkv6_error_string.restype = ctypes.c_char_p
     if lib.wkv6_checkpoint() != CHECKPOINT:
-        raise RuntimeError(f"csrc/wkv6.cu saves a state every {lib.wkv6_checkpoint()} tokens, "
+        raise RuntimeError(f"csrc/wkv6_common.cuh spaces the saved states {lib.wkv6_checkpoint()} tokens apart, "
                            f"the wrapper expects {CHECKPOINT}")
     return lib
 
@@ -202,13 +194,8 @@ def _bind_bwd(lib: ctypes.CDLL) -> ctypes.CDLL:
         + [ctypes.c_int] * 5 + [ctypes.c_void_p]     # B, S, H, C, dtype, stream
     )
     lib.wkv6_backward.restype = ctypes.c_int
-    lib.wkv6_bwd_checkpoint.argtypes = []
-    lib.wkv6_bwd_checkpoint.restype = ctypes.c_int
     lib.wkv6_bwd_error_string.argtypes = [ctypes.c_int]
     lib.wkv6_bwd_error_string.restype = ctypes.c_char_p
-    if lib.wkv6_bwd_checkpoint() != CHECKPOINT:
-        raise RuntimeError(f"csrc/wkv6_bwd.cu reads a state every {lib.wkv6_bwd_checkpoint()} tokens, "
-                           f"the wrapper expects {CHECKPOINT}")
     return lib
 
 

@@ -23,7 +23,7 @@ import torch
 from repro.kernels.ref import wkv6_ref as jax_wkv6_ref
 from repro.models.rwkv6 import wkv_chunked
 from repro_torch.kernels.ref import wkv6_ref
-from repro_torch.kernels.wkv6 import CHECKPOINT, wkv6, wkv6_bwd_plain, wkv6_plain
+from repro_torch.kernels.wkv6 import wkv6, wkv6_bwd_plain, wkv6_plain
 
 TOL = dict(atol=1e-4, rtol=1e-4)
 GRADS = ("dr", "dk", "dv", "dw", "du", "ds0")
@@ -34,7 +34,7 @@ CASES = {
     "c16-s0-dsfin": (2, 64, 2, 16, 16, True, True),
     "c8-dsfin": (1, 128, 4, 8, 32, False, True),
     "c32-s0": (1, 32, 1, 32, 8, True, False),
-    # ragged: S crosses the chunk and the plain backward's checkpoints (every 16) mid-way
+    # ragged: S crosses the chunk and the kernels' saved states (every 16 tokens) mid-way
     "ragged-37": (2, 37, 2, 8, 16, True, True),
     "ragged-20": (2, 20, 2, 16, 16, False, True),
     "decode-1": (4, 1, 2, 16, 16, True, True),
@@ -167,13 +167,3 @@ def test_plain_bwd_matches_autograd_of_the_port_oracle():
     for gname, g, wnt in zip(GRADS, got, want):
         torch.testing.assert_close(g, wnt, **TOL, msg=gname)
 
-
-def test_checkpoint_matches_the_kernels():
-    """The plain backward recomputes from a state every CHECKPOINT tokens, as the kernels save and read them."""
-    import re
-    from pathlib import Path
-
-    csrc = Path(__file__).resolve().parents[1] / "src" / "repro_torch" / "kernels" / "csrc"
-    for name in ("wkv6.cu", "wkv6_bwd.cu"):
-        found = re.findall(r"constexpr int CK = (\d+);", (csrc / name).read_text())
-        assert found == [str(CHECKPOINT)], name
