@@ -34,8 +34,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
               come out zero and the rest bitwise the wrapper's; gates per gradient, atol 2e-2 x rms(plain) with rtol 2e-2
               in bf16 and 2e-5 scaled the same way in f32; CUDA-event times of each
               kernel and of the whole backward against its bound and the plain version, which the
-              backward must beat at gemma2's, stablelm's and olmoe's training shapes (olmoe-1b-7b: bf16
-              B4 S=T=2048 H16 Kv16 hd128, softcap 0, window 0); phase 2 must report no spill for the
+              backward must beat at gemma2's, stablelm's, olmoe's and jamba's training shapes (olmoe-1b-7b:
+              bf16 B4 S=T=2048 H16 Kv16 hd128, softcap 0, window 0; jamba-v0.1-52b's attention layer the
+              same at H32 Kv8, four query heads per KV head); phase 2 must report no spill for the
               bf16 backward kernels (hd 80 runs their 2-box instantiations);
    wkv6-bwd — WKV-6's training form (the forward that also saves the state before every 16 tokens)
               bitwise the serving form on out and final state, its first saved state s0; the
@@ -47,6 +48,14 @@ Phases, each of which raises on failure (the script then exits non-zero):
               the scan gate, bf16 dr, dk, dv at the backward's bf16 gate (2e-2 x rms, rtol 2e-2);
               two calls bitwise equal; kernel, plain and bound ms of both kernels; the backward
               must beat its plain version at the training shape;
+   scan-bwd — the selective scan's training form (the forward that also saves the state before every
+              16 tokens) bitwise the serving form on y and final state, its first saved state h0; the
+              backward kernel, all f32, against the exact gradients (mamba_scan_bwd_plain in f64) at the
+              smoke width (di 128 ds 8, with h0 and dh_fin), jamba's training shape (B4 S2048 di8192 ds16),
+              a ragged S = 300 at jamba's width with h0 and dh_fin, and a ragged di of 202: every gradient
+              (dA, dB and dC, sums over tokens or channels, too) no further from exact than the f32 plain
+              version plus the scan gate (1e-4 x rms, rtol 1e-4); two calls bitwise equal; kernel, plain
+              and bound ms of both kernels; the backward must beat its plain version at the training shape;
    planted  — copies of the kernels with a fault built in must fail the same gates:
               flash attention that (a) skips the last live KV tile of every block or
               (b) treats the diagonal tiles as interior and skips their causal mask,
@@ -61,7 +70,10 @@ Phases, each of which raises on failure (the script then exits non-zero):
               fault changes nothing and must give the committed gradients bitwise, so it runs
               once more at H32 Kv8 hd80, where it must fail; and the WKV-6 backward that (a) drops
               the bonus from dk and dv, (b) ignores ds_fin, (c) carries dS without the decay or (d)
-              takes dw against S_t instead of S_{t-1}, at f32 B2 S320 H64 C64 with s0 and ds_fin;
+              takes dw against S_t instead of S_{t-1}, at f32 B2 S320 H64 C64 with s0 and ds_fin; and the
+              selective scan's backward that (a) carries g without the decay, (b) ignores dh_fin, (c) sums
+              dA without its factor delta or (d) takes dC against h_{t-1} instead of h_t, at f32 B2 S320 at
+              jamba's width with h0 and dh_fin;
 4. serve    — gemma2-2b at full width (26 layers, bf16 compute, f32 weights from a
               seeded torch.Generator) through ServeEngine: 8 prompts of 4-24 tokens,
               4 slots, 16 new tokens, greedy; flash attention must launch exactly 26
@@ -110,8 +122,10 @@ Phases, each of which raises on failure (the script then exits non-zero):
               local and global) and of codeqwen1.5-7b (its untied head), rwkv6-7b (the WKV-6
               training form and backward) and olmoe-1b-7b (its MoE, whose top-8 expert ids must be
               equal first) to one layer each, B1 S320, loss chunk 64: the loss within rtol 1e-5 and
-              every gradient leaf within ||card - cpu|| / ||cpu|| <= 1e-4; then 3 Trainer steps of
-              gemma2's smoke model on both, losses within rtol 1e-4;
+              every gradient leaf within ||card - cpu|| / ||cpu|| <= 1e-4; the same for jamba-v0.1-52b cut
+              to pattern positions 0 (Mamba + dense) and 4 (attention + dense), 0.77 B parameters (the scan's
+              training form and backward kernels, flash at G = 4); then 3 Trainer steps each of gemma2's and
+              jamba's smoke models on both, losses within rtol 1e-4;
 12. dense   — codeqwen1.5-7b, stablelm-3b, nemotron-4-15b and olmoe-1b-7b, each at full width and
               depth on the serving launcher's weights (every leaf drawn in f32 and stored in bf16 as
               the engine casts it, no master copy: nemotron's 15.6 B parameters in 31.3 GB), bf16
@@ -135,7 +149,16 @@ Phases, each of which raises on failure (the script then exits non-zero):
 15. moe-train — olmoe-1b-7b trained as in phase 9, cut to 6 of its 16 layers: per step flash
               attention's forward exactly 12 times and each backward kernel 6 times (hd 128), the
               MoE's load-balance loss in the loss, finite and positive at every step;
-16. library — SDPA's backward through autograd at each backward case (softcap 0, the same
+16. jamba-train — jamba-v0.1-52b trained as in phase 9, cut to one unit of pattern positions 1 (Mamba +
+              MoE, 16 experts top-2 at d_ff 14336) and 4 (attention + dense), every width kept (3.41 B
+              parameters, 54.6 GB of f32 state): per step the scan's training form exactly twice (one +
+              one recomputed), its backward once, flash attention's forward twice and each backward kernel
+              once (H32 Kv8 hd128, G = 4), the MoE's load-balance loss finite and positive;
+17. e2e     — `python -m repro_torch.launch.train_end_to_end` through its main(), as a user runs it: 40
+              steps of its ~100M model (f32) with a save every 10 steps through SCISPACE and a node
+              failure before step 26: one restart from step 20, steps [10, 20, 30, 40] found by SDS, the
+              loss falling, 12 f32 flash forward and 12 x 3 backward launches per step computed (45);
+18. library — SDPA's backward through autograd at each backward case (softcap 0, the same
               mask; is_causal for a plain causal one), the backward's library yardstick.  It runs
               last: autograd leaves a cuBLAS workspace on its own thread, which would raise every
               later phase's peak.
@@ -217,14 +240,22 @@ def kernel_tol(dtype: str, plain) -> dict:
     return dict(atol=BF16_REL * rms, rtol=BF16_REL)
 
 
+def widened(got, want):
+    """Both in f64 when either is (a result held against the exact one), else both in f32."""
+    if max(got.element_size(), want.element_size()) == 8:
+        return got.double(), want.double()
+    return got.float(), want.float()
+
+
 def n_outside(got, want, tol) -> int:
-    got, want = got.float(), want.float()
+    got, want = widened(got, want)
     bad = ((got - want).abs() > tol["atol"] + tol["rtol"] * want.abs()) | ~got.isfinite()
     return int(bad.sum())
 
 
 def check_close(name: str, got, want, tol) -> float:
-    err = (got.float() - want.float()).abs().max().item()
+    g, w = widened(got, want)
+    err = (g - w).abs().max().item()
     if n_outside(got, want, tol):
         raise AssertionError(f"{name}: max |err| {err:.3e} beyond {tol} (or non-finite)")
     return err
@@ -384,6 +415,12 @@ PLANTED = {
                             "#pragma unroll\n"
                             "          for (int s = 0; s < NS; ++s) h[c][s] = 0.f;\n"
                             "      }\n"),
+    "mamba_bwd_no_decay_in_carry": ("mamba_scan_bwd", "carry[s] = ga;", "carry[s] = g;"),
+    "mamba_bwd_ignores_dh_fin": ("mamba_scan_bwd", "const bool has_dhfin = dh_fin != nullptr;",
+                                 "const bool has_dhfin = false;"),
+    "mamba_bwd_dA_without_delta": ("mamba_scan_bwd", "dA[s] = fmaf(gah, dt, dA[s]);", "dA[s] += gah;"),
+    "mamba_bwd_dC_from_old_state": ("mamba_scan_bwd", "pbc[(2 * k + 1) * NS + s] = fmaf(a, hs[i][s], x * bq[s]) * dyt;",
+                                    "pbc[(2 * k + 1) * NS + s] = hs[i][s] * dyt;"),
     "flash_bwd_no_softcap_derivative": ("flash_attention_bwd", "pd = p * (1.f - t * t);", "pd = p;"),
     "flash_bwd_first_head_only": ("flash_attention_bwd", "const int n_items = group * nq;",
                                   "const int n_items = nq;"),
@@ -516,7 +553,8 @@ def backward_cases():
     window 0: plain causal attention, the function SDPA's causal backward computes; and
     stablelm-3b's training shape (MHA at hd 80, which the bf16 kernels pad to 128 columns; what the
     padding costs is priced by scripts/flash_variants.py --padding); and olmoe-1b-7b's (MHA at hd 128,
-    unpadded, qk-norm outside the kernel)."""
+    unpadded, qk-norm outside the kernel); and jamba's attention layer (H32 Kv8 hd128, four query heads per KV
+    head, no softcap, no window)."""
     return [("smoke", "bfloat16", 2, 64, 4, 2, 16, 0, 0.0),
             ("smoke", "float32", 2, 64, 4, 2, 16, 0, 0.0),
             ("gemma2-train", "bfloat16", 4, 2048, 8, 4, 256, 4096, 50.0),
@@ -526,7 +564,8 @@ def backward_cases():
             ("gemma2-f32", "float32", 1, 320, 8, 4, 256, 4096, 50.0),
             ("gemma2-train-causal", "bfloat16", 4, 2048, 8, 4, 256, 0, 0.0),
             ("stablelm-train", "bfloat16", 4, 2048, 32, 32, 80, 0, 0.0),
-            ("olmoe-train", "bfloat16", 4, 2048, 16, 16, 128, 0, 0.0)]
+            ("olmoe-train", "bfloat16", 4, 2048, 16, 16, 128, 0, 0.0),
+            ("jamba-train", "bfloat16", 4, 2048, 32, 8, 128, 0, 0.0)]
 
 
 def backward_inputs(torch, dtype, B, S, H, Kv, hd, q_scale, seed):
@@ -623,7 +662,7 @@ def run_backward_cases(torch, card):
                    bound_ms={n: b[0] for n, b in bounds.items()}, bound_by={n: b[1] for n, b in bounds.items()},
                    card=card)
         print(json.dumps(row), flush=True)
-        if label.startswith(("gemma2-train", "stablelm-train", "olmoe-train")) and not backward_ms < plain_ms:
+        if label.startswith(("gemma2-train", "stablelm-train", "olmoe-train", "jamba-train")) and not backward_ms < plain_ms:
             raise AssertionError(f"{name}: the backward kernels take {backward_ms:.3f} ms, no faster than "
                                  f"their plain version's {plain_ms:.3f} ms")
         rows.append(row)
@@ -1146,6 +1185,194 @@ def mamba_planted_checks(torch, card, planted):
 
 
 # ---------------------------------------------------------------------------
+# phase 3, selective-scan backward: the kernel against mamba_scan_bwd_plain, the forward's training form,
+# planted faults
+# ---------------------------------------------------------------------------
+
+SCAN_GRADS = ("du", "ddelta", "dA", "dB", "dC", "dh0")
+
+
+def mamba_bwd_cases():
+    """(label, B, S, di, ds, h0 and dh_fin given), all f32: the smoke width (di 128, ds 8) with h0 and dh_fin;
+    jamba's training shape (B4 S2048 di8192 ds16, no h0 or dh_fin, as training calls it); a ragged S = 300 at
+    jamba's width with h0 and dh_fin (a last span of 12 tokens); and a ragged di of 202 (rows that are not
+    whole 16-byte chunks, a last block of 10 channels)."""
+    return [("smoke", 2, 64, *SCAN_GEOMETRY["smoke"][:2], True),
+            ("jamba-train", 4, 2048, *SCAN_GEOMETRY["jamba"][:2], False),
+            ("jamba-ragged", 1, 300, *SCAN_GEOMETRY["jamba"][:2], True),
+            ("jamba-ragged-di", 2, 300, 202, SCAN_GEOMETRY["jamba"][1], True)]
+
+
+def mamba_bwd_inputs(torch, label, B, S, di, ds, carried, seed):
+    """u, delta, A, B, C as mamba_inputs draws them; h0, dh_fin ~ N(0, 1) when ``carried``; dy ~ N(0, 1)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    u, delta, A, Bm, Cm = mamba_inputs(torch, gen, "smoke" if label == "smoke" else "jamba", B, S, di, ds)
+    h0 = torch.randn((B, di, ds), generator=gen, device="cuda") if carried else None
+    dy = torch.randn((B, S, di), generator=gen, device="cuda")
+    dh_fin = torch.randn((B, di, ds), generator=gen, device="cuda") if carried else None
+    return u, delta, A, Bm, Cm, h0, dy, dh_fin
+
+
+def mamba_bwd_exact(ms, *inputs):
+    """The exact gradients: mamba_scan_bwd_plain on the inputs (u, delta, A, B, C, h0, dy, dh_fin) taken to f64."""
+    return ms.mamba_scan_bwd_plain(*(None if x is None else x.double() for x in inputs))
+
+
+def mamba_bwd_tols(exact, plain) -> dict:
+    """Each gradient's gate against the exact one: atol the f32 plain version's own max |error| from it plus
+    1e-4 x rms(exact), rtol 1e-4.  So a kernel passes when it comes no further from the exact gradient than
+    mamba_scan_bwd_plain in f32 does, within the scan tolerance (the plain version passes by construction).
+    The f32 plain version is not the yardstick itself: its rounding is part of what is measured (dDelta 2.2e-4
+    of its rms from exact at the training shape), and a gate of 1e-4 against it would measure how alike two
+    roundings are.  dA (a sum over B x S tokens), dB and dC (sums over di channels) take the same rule: their
+    f32 rounding, that of the plain version too, is in the first term."""
+    tols = {}
+    for g, e, p in zip(SCAN_GRADS, exact, plain):
+        rms = e.pow(2).mean().sqrt().item()
+        tols[g] = dict(atol=(p.double() - e).abs().max().item() + SCAN_REL * rms, rtol=SCAN_REL)
+    return tols
+
+
+def over_rms(got, want) -> float:
+    """max |got - want| over rms(want), in f64 when either is."""
+    got, want = widened(got, want)
+    return (got - want).abs().max().item() / want.pow(2).mean().sqrt().item()
+
+
+def mamba_train_bounds(B, S, di, ds, with_h0, with_dhfin):
+    """{"forward_train": ..., "backward": ...}: (least ms, "bytes" or "operations").
+
+    The training form is the forward (mamba_bound's count) plus the states it saves, f32 [B, ceil(S / 16), di,
+    ds].  The backward, per token, channel and state: recomputing the state (4 FLOP, one exponential) and the
+    gradient (17 FLOP: g's, B.g's, ddelta's and dA's multiply-adds, g a, g a h, g delta u, h_t dy, the carry,
+    the adds of dB and dC across channels); bytes, each once: u, delta, dy and the saved states read, du and
+    ddelta written, all f32; B, C, dB, dC, A, dA, dh0 (and dh_fin) are small but counted.
+    """
+    from repro_torch.kernels.mamba_scan import CHECKPOINT
+
+    states = 4 * B * -(-S // CHECKPOINT) * di * ds
+    fwd_bytes = 4 * (3 * B * S * di + 2 * B * S * ds + di * ds + (2 if with_h0 else 1) * B * di * ds) + states
+    fwd_bytes_ms = fwd_bytes / HBM_BYTES_PER_S * 1e3
+    fwd_ops_ms = max(B * S * di * (6.0 * ds + 1) / PEAK_FLOPS["float32"], B * S * di * ds / EXP_PER_S) * 1e3
+    n = B * S * di * ds
+    bwd_ops_ms = max(21.0 * n / PEAK_FLOPS["float32"], n / EXP_PER_S) * 1e3
+    bwd_bytes = 4 * (5 * B * S * di + 4 * B * S * ds + 2 * di * ds + (2 if with_dhfin else 1) * B * di * ds) + states
+    bwd_bytes_ms = bwd_bytes / HBM_BYTES_PER_S * 1e3
+    return {"forward_train": (max(fwd_ops_ms, fwd_bytes_ms), "bytes" if fwd_bytes_ms >= fwd_ops_ms else "operations"),
+            "backward": (max(bwd_ops_ms, bwd_bytes_ms), "bytes" if bwd_bytes_ms >= bwd_ops_ms else "operations")}
+
+
+def run_mamba_bwd_cases(torch, card):
+    """Each case: the training form's y and final state bitwise the serving form's and within the scan gate of the
+    plain version's, its first saved state h0 (or zero); the backward kernel against the exact gradients at each
+    gradient's gate (mamba_bwd_tols), two calls bitwise equal, its distance from the f32 plain version recorded;
+    CUDA-event times of both kernels, the serving forward, the plain versions, and the bounds.  The backward must
+    beat its plain version at the training shape."""
+    import repro_torch.kernels.mamba_scan as ms
+
+    rows = []
+    chunk = SCAN_GEOMETRY["jamba"][2]
+    for seed, (label, B, S, di, ds, carried) in enumerate(mamba_bwd_cases(), start=700):
+        u, delta, A, Bm, Cm, h0, dy, dh_fin = mamba_bwd_inputs(torch, label, B, S, di, ds, carried, seed)
+        name = f"{label} float32 B{B} S{S} di{di} ds{ds}" + (" h0 dh_fin" if carried else "")
+        y, h_fin = ms._launch(u, delta, A, Bm, Cm, h0)
+        y_t, h_fin_t, h_chk = ms._launch(u, delta, A, Bm, Cm, h0, train=True)
+        first = torch.zeros_like(h_chk[:, 0]) if h0 is None else h0
+        if not (torch.equal(y, y_t) and torch.equal(h_fin, h_fin_t) and torch.equal(h_chk[:, 0], first)):
+            raise AssertionError(f"{name}: the training form's y / final state differ from the serving form's, "
+                                 f"or its first saved state is not h0")
+        plain_y, plain_state = ms.mamba_scan_plain(u, delta, A, Bm, Cm, chunk=chunk, h0=h0)
+        fwd_err = max(check_close(f"{name} training form", y_t, plain_y, scan_tol(plain_y)),
+                      check_close(f"{name} training form, final state", h_fin_t, plain_state, scan_tol(plain_state)))
+        del plain_y, plain_state
+        before = ms.mamba_scan_bwd.launches
+        grads = ms.mamba_scan_bwd(u, delta, A, Bm, Cm, h_chk, dy, dh_fin)
+        again = ms.mamba_scan_bwd(u, delta, A, Bm, Cm, h_chk, dy, dh_fin)
+        torch.cuda.synchronize()
+        if ms.mamba_scan_bwd.launches != before + 2:
+            raise AssertionError(f"{name}: {ms.mamba_scan_bwd.launches - before} backward launches for two calls")
+        bitwise = all(torch.equal(a, b) for a, b in zip(grads, again))
+        if not bitwise:
+            raise AssertionError(f"{name}: two backward calls differ")
+        plain = ms.mamba_scan_bwd_plain(u, delta, A, Bm, Cm, h0, dy, dh_fin)
+        exact = mamba_bwd_exact(ms, u, delta, A, Bm, Cm, h0, dy, dh_fin)
+        tols = mamba_bwd_tols(exact, plain)
+        errs = {}
+        for g, got, want, p in zip(SCAN_GRADS, grads, exact, plain):
+            if got.shape != p.shape or got.dtype != p.dtype:
+                raise AssertionError(f"{name} {g}: {got.dtype} {tuple(got.shape)}, plain {p.dtype} {tuple(p.shape)}")
+            errs[g] = check_close(f"{name} {g} against exact", got, want, tols[g])
+        rel = {g: over_rms(got, e) for g, got, e in zip(SCAN_GRADS, grads, exact)}
+        plain_rel = {g: over_rms(p, e) for g, p, e in zip(SCAN_GRADS, plain, exact)}
+        vs_plain = {g: over_rms(got, p) for g, got, p in zip(SCAN_GRADS, grads, plain)}
+        del exact
+        kernel_ms = cuda_ms(torch, lambda: ms.mamba_scan_bwd(u, delta, A, Bm, Cm, h_chk, dy, dh_fin))
+        train_ms = cuda_ms(torch, lambda: ms._launch(u, delta, A, Bm, Cm, h0, train=True))
+        serve_ms = cuda_ms(torch, lambda: ms._launch(u, delta, A, Bm, Cm, h0))
+        plain_ms = cuda_ms(torch, lambda: ms.mamba_scan_bwd_plain(u, delta, A, Bm, Cm, h0, dy, dh_fin), max_reps=2)
+        plain_fwd_ms = cuda_ms(torch, lambda: ms.mamba_scan_plain(u, delta, A, Bm, Cm, chunk=chunk, h0=h0), max_reps=2)
+        bounds = mamba_train_bounds(B, S, di, ds, h0 is not None, dh_fin is not None)
+        row = dict(case=name, label=label, dtype="float32", seed=seed, max_abs_err=errs, max_err_over_rms=rel,
+                   plain_max_err_over_rms=plain_rel, max_err_over_rms_vs_plain=vs_plain,
+                   against="exact: mamba_scan_bwd_plain in f64", tol=tols, bitwise_repeat=bitwise,
+                   forward_max_abs_err=fwd_err, kernel_ms=kernel_ms, plain_ms=plain_ms,
+                   plain="mamba_scan_bwd_plain (token by token, f32)", forward_train_ms=train_ms,
+                   forward_serve_ms=serve_ms, plain_forward_ms=plain_fwd_ms,
+                   plain_forward="mamba_scan_plain (chunk 256)",
+                   bound_ms={n_: b[0] for n_, b in bounds.items()}, bound_by={n_: b[1] for n_, b in bounds.items()},
+                   library_ms=None, library="none", card=card)
+        print(json.dumps(row), flush=True)
+        if label == "jamba-train" and not kernel_ms < plain_ms:
+            raise AssertionError(f"{name}: the backward kernel takes {kernel_ms:.3f} ms, no faster than its plain "
+                                 f"version's {plain_ms:.3f} ms")
+        rows.append(row)
+        del u, delta, A, Bm, Cm, h0, dy, dh_fin, grads, again, plain, h_chk, y, y_t
+    torch.cuda.empty_cache()
+    return rows
+
+
+def mamba_bwd_planted_checks(torch, card, planted):
+    """Each faulty build of the scan's backward must put elements of some gradient outside its gate against the
+    exact gradients, at f32 B2 S320 at jamba's width with h0 and dh_fin, where the committed build puts none."""
+    import ctypes
+
+    import repro_torch.kernels.mamba_scan as ms
+
+    B, S, (di, ds, _) = 2, 320, SCAN_GEOMETRY["jamba"]
+    u, delta, A, Bm, Cm, h0, dy, dh_fin = mamba_bwd_inputs(torch, "jamba", B, S, di, ds, True, seed=800)
+    _, _, h_chk = ms._launch(u, delta, A, Bm, Cm, h0, train=True)
+    plain = ms.mamba_scan_bwd_plain(u, delta, A, Bm, Cm, h0, dy, dh_fin)
+    exact = mamba_bwd_exact(ms, u, delta, A, Bm, Cm, h0, dy, dh_fin)
+    tols = mamba_bwd_tols(exact, plain)
+
+    def outside(grads):
+        return {g: n_outside(got, want, tols[g]) for g, got, want in zip(SCAN_GRADS, grads, exact)}
+
+    good = outside(ms.mamba_scan_bwd(u, delta, A, Bm, Cm, h_chk, dy, dh_fin))
+    if any(good.values()):
+        raise AssertionError(f"planted: the committed scan backward fails its own gate: {good}")
+    checks = (("mamba_bwd_no_decay_in_carry", "the carry has no decay: g_t-1 = C dy + g_t"),
+              ("mamba_bwd_ignores_dh_fin", "dh_fin is ignored (the sweep starts from zero)"),
+              ("mamba_bwd_dA_without_delta", "dA sums g a h_t-1 without its factor delta"),
+              ("mamba_bwd_dC_from_old_state", "dC is taken against h_t-1 instead of h_t"))
+    for name, fault in checks:
+        lib = ms._bind_bwd(ctypes.CDLL(str(planted[name])))
+        good_lib, ms._bwd_lib = ms._bwd_lib, lambda: lib
+        try:
+            grads = ms.mamba_scan_bwd(u, delta, A, Bm, Cm, h_chk, dy, dh_fin)
+            torch.cuda.synchronize()
+        finally:
+            ms._bwd_lib = good_lib
+        bad = outside(grads)
+        log("planted", json.dumps(dict(fault=f"selective-scan backward: {fault}",
+                                       case=f"float32 B{B} S{S} di{di} ds{ds} h0 dh_fin", outside_tol=bad,
+                                       committed_outside_tol=good, tol=tols,
+                                       elements={g: x.numel() for g, x in zip(SCAN_GRADS, grads)}, card=card)))
+        if not any(bad.values()):
+            raise AssertionError(f"planted {name}: the scan backward gate passed a kernel where {fault}")
+
+
+# ---------------------------------------------------------------------------
 # phases 4-8: the serving paths
 # ---------------------------------------------------------------------------
 
@@ -1162,7 +1389,7 @@ def leaves(tree):
 def kernel_counters():
     """Each launch count, by name: (the wrapper that holds it, its attribute)."""
     from repro_torch.kernels.flash_attention import flash_attention, flash_attention_bwd
-    from repro_torch.kernels.mamba_scan import mamba_scan
+    from repro_torch.kernels.mamba_scan import mamba_scan, mamba_scan_bwd
     from repro_torch.kernels.wkv6 import wkv6, wkv6_bwd
 
     return {"flash_attention": (flash_attention, "launches"),
@@ -1172,17 +1399,19 @@ def kernel_counters():
             "flash_attention_bwd_dkdv": (flash_attention_bwd, "launches_dkdv"),
             "flash_attention_bwd_dq": (flash_attention_bwd, "launches_dq"),
             "wkv6": (wkv6, "launches"), "wkv6_train": (wkv6, "launches_train"), "wkv6_bwd": (wkv6_bwd, "launches"),
-            "mamba_scan": (mamba_scan, "launches")}
+            "mamba_scan": (mamba_scan, "launches"), "mamba_scan_train": (mamba_scan, "launches_train"),
+            "mamba_scan_bwd": (mamba_scan_bwd, "launches")}
 
 
 def launch_counts(n_flash: int = 0, n_wkv6: int = 0, n_scan: int = 0, n_bwd: int = 0, n_wkv6_train: int = 0,
-                  n_wkv6_bwd: int = 0) -> dict:
+                  n_wkv6_bwd: int = 0, n_scan_train: int = 0, n_scan_bwd: int = 0) -> dict:
     """A pass's exact launch counts: every flash launch of the bf16 paths on the tensor-core kernel,
     n_bwd launches of each flash backward kernel, n_wkv6 WKV-6 forward launches of which n_wkv6_train
-    in the training form, and n_wkv6_bwd of the WKV-6 backward."""
+    in the training form, n_wkv6_bwd of the WKV-6 backward, and the same three for the selective scan."""
     return {"flash_attention": n_flash, "flash_attention_wgmma": n_flash, "flash_attention_scalar": 0,
             "flash_attention_bwd_rowdot": n_bwd, "flash_attention_bwd_dkdv": n_bwd, "flash_attention_bwd_dq": n_bwd,
-            "wkv6": n_wkv6, "wkv6_train": n_wkv6_train, "wkv6_bwd": n_wkv6_bwd, "mamba_scan": n_scan}
+            "wkv6": n_wkv6, "wkv6_train": n_wkv6_train, "wkv6_bwd": n_wkv6_bwd, "mamba_scan": n_scan,
+            "mamba_scan_train": n_scan_train, "mamba_scan_bwd": n_scan_bwd}
 
 
 def serve(torch, model, params, card, *, prompts, max_len, slots, max_new, phase, per_pass):
@@ -1451,6 +1680,10 @@ TRAIN = dict(steps=8, seq_len=2048, global_batch=4, microbatches=1, lr=1e-3, see
 # phases 14-15: the depth each arch is cut to, every width kept, so that its f32 masters, gradients and two
 # AdamW moments (16 bytes a parameter) fit one card: rwkv6-7b 2.89 B parameters, olmoe-1b-7b 2.72 B
 TRAIN_CUTS = {"rwkv6-7b": 12, "olmoe-1b-7b": 6}
+# phase 16: jamba-v0.1-52b cut to one unit of two of its pattern positions, every width kept: 1 (Mamba + MoE,
+# 16 experts top-2 at d_ff 14336) and 4 (attention + dense), 3.41 B parameters, 54.6 GB of f32 state; position
+# 0 (Mamba + dense, +0.28 B) would take the reckoned peak past 72 GB.  At full depth its state is 821 GB.
+JAMBA_TRAIN_CUT = (1, 4)
 
 
 class FullCollections:
@@ -1480,7 +1713,7 @@ def train_phase(torch, card, arch="gemma2-2b", phase="train", keep_final=False, 
     yardstick)."""
     from repro_torch import convert
     from repro_torch.configs import get_config
-    from repro_torch.launch.train import build_trainer
+    from repro_torch.launch.train import build_trainer, cut_config
 
     counters = kernel_counters()
     marks = []
@@ -1494,12 +1727,13 @@ def train_phase(torch, card, arch="gemma2-2b", phase="train", keep_final=False, 
     cfg = trainer.model.cfg
     params = trainer.state["params"]
     dtypes = sorted({str(t.dtype) for t in leaves(params)})
-    if (cfg.n_layers != (n_layers or get_config(arch).n_layers) or cfg.remat != "unit" or cfg.dtype != "bfloat16"
+    if (cfg != cut_config(get_config(arch), n_layers) or cfg.remat != "unit" or cfg.dtype != "bfloat16"
             or dtypes != ["torch.float32"]):
         raise AssertionError(f"{phase}: {cfg.n_layers} layers, remat {cfg.remat}, compute {cfg.dtype}, "
                              f"params {dtypes}")
     n_attn = cfg.n_units * sum(spec.mixer in ("attn", "attn_local") for spec in cfg.pattern)
     n_rwkv = cfg.n_units * sum(spec.mixer == "rwkv" for spec in cfg.pattern)
+    n_mamba = cfg.n_units * sum(spec.mixer == "mamba" for spec in cfg.pattern)
     has_moe = any(spec.ffn == "moe" for spec in cfg.pattern)
     auxes = []
     if has_moe:
@@ -1512,7 +1746,8 @@ def train_phase(torch, card, arch="gemma2-2b", phase="train", keep_final=False, 
 
         trainer.model.train_loss = recording
     per_step = launch_counts(n_flash=2 * n_attn, n_bwd=n_attn,   # forward, recomputed forward, backward
-                             n_wkv6=2 * n_rwkv, n_wkv6_train=2 * n_rwkv, n_wkv6_bwd=n_rwkv)
+                             n_wkv6=2 * n_rwkv, n_wkv6_train=2 * n_rwkv, n_wkv6_bwd=n_rwkv,
+                             n_scan=2 * n_mamba, n_scan_train=2 * n_mamba, n_scan_bwd=n_mamba)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for obj, attr in counters.values():
@@ -1538,6 +1773,7 @@ def train_phase(torch, card, arch="gemma2-2b", phase="train", keep_final=False, 
     tokens = TRAIN["global_batch"] * TRAIN["seq_len"]
     step_ms = [1e3 * m["seconds"] for m in log_rows]
     stats = dict(model=cfg.name, layers=cfg.n_layers, params=sum(t.numel() for t in leaves(params)),
+                 pattern=[(spec.mixer, spec.ffn) for spec in cfg.pattern], cut=n_layers,
                  full_depth_layers=get_config(arch).n_layers,
                  remat=cfg.remat, batch=TRAIN["global_batch"], seq=TRAIN["seq_len"], steps=len(log_rows),
                  losses=losses, grad_norms=norms, moe_aux=auxes if has_moe else None, lrs=[m["lr"] for m in log_rows], step_ms=step_ms,
@@ -1733,12 +1969,37 @@ def train_check_cut(torch, card, cut, label):
     torch.cuda.empty_cache()
 
 
+# phase 11: jamba-v0.1-52b's card-against-CPU cut, pattern positions 0 (Mamba + dense) and 4 (attention + dense),
+# 0.77 B parameters: the selective scan's training form and backward and flash at G = 4, every width kept, in f32
+# on the host too; olmoe's cut already holds the MoE's training to the CPU
+JAMBA_CHECK_CUT = (0, 4)
+
+
+def smoke_trainers_agree(torch, card, arch):
+    """3 Trainer steps of ``arch``'s smoke model on the card and on the CPU, from the card trainer's weights (the
+    two generators draw different numbers): losses within rtol 1e-4."""
+    from repro_torch.launch.train import build_trainer
+
+    trainers = {device: build_trainer(arch, smoke=True, steps=3, device=device) for device in ("cuda", "cpu")}
+    with torch.no_grad():
+        for a, b in zip(leaves(trainers["cpu"].state["params"]), leaves(trainers["cuda"].state["params"])):
+            a.copy_(b.cpu())
+    losses = {}
+    for device, trainer in trainers.items():
+        trainer.run(3)
+        losses[device] = [m["loss"] for m in trainer.metrics_log]
+    log("train-check", json.dumps(dict(model=f"{arch} smoke", smoke_losses_card=losses["cuda"],
+                                       smoke_losses_cpu=losses["cpu"], rtol=1e-4, card=card)))
+    np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-4)
+
+
 def train_check(torch, card):
     """Training, card against CPU: a full-width unit of gemma2-2b (a local and a global layer), a full-width
     layer each of codeqwen1.5-7b (an untied head), rwkv6-7b (the WKV-6 kernels) and olmoe-1b-7b (the MoE
-    and its load-balance loss), and 3 Trainer steps of gemma2's smoke model."""
+    and its load-balance loss), jamba-v0.1-52b's cut JAMBA_CHECK_CUT (the selective scan's kernels), and 3
+    Trainer steps of gemma2's and jamba's smoke models."""
     from repro_torch.configs import get_config
-    from repro_torch.launch.train import build_trainer
+    from repro_torch.launch.train import cut_config
 
     cut = get_config("gemma2-2b").replace(n_layers=2, dtype="float32")  # one unit: a local and a global layer
     train_check_cut(torch, card, cut, f"{cut.name} {cut.n_layers} layers f32")
@@ -1748,19 +2009,60 @@ def train_check(torch, card):
     train_check_cut(torch, card, cut, f"{cut.name} {cut.n_layers} layer f32, WKV-6 forward and backward kernels")
     cut = get_config("olmoe-1b-7b").replace(n_layers=1, dtype="float32")
     train_check_cut(torch, card, cut, f"{cut.name} {cut.n_layers} layer f32, top-8 of 64 experts, untied head")
+    cut = cut_config(get_config("jamba-v0.1-52b"), JAMBA_CHECK_CUT).replace(dtype="float32")
+    train_check_cut(torch, card, cut, f"{cut.name} pattern positions {JAMBA_CHECK_CUT} "
+                                      f"{[(spec.mixer, spec.ffn) for spec in cut.pattern]} f32, selective-scan kernels")
+    for arch in ("gemma2-2b", "jamba-v0.1-52b"):
+        smoke_trainers_agree(torch, card, arch)
 
-    # the CPU trainer starts from the card trainer's weights: the two generators draw different numbers
-    trainers = {device: build_trainer("gemma2-2b", smoke=True, steps=3, device=device) for device in ("cuda", "cpu")}
-    with torch.no_grad():
-        for a, b in zip(leaves(trainers["cpu"].state["params"]), leaves(trainers["cuda"].state["params"])):
-            a.copy_(b.cpu())
-    losses = {}
-    for device, trainer in trainers.items():
-        trainer.run(3)
-        losses[device] = [m["loss"] for m in trainer.metrics_log]
-    log("train-check", json.dumps(dict(smoke_losses_card=losses["cuda"], smoke_losses_cpu=losses["cpu"],
-                                       rtol=1e-4, card=card)))
-    np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-4)
+
+# phase 17: the end-to-end example's twin on the card, as a user runs it: a few dozen steps of its ~100M model
+# (f32, 12 layers, seq 128, batch 2), a save every 10 steps through SCISPACE (in-memory data centers pod0 and
+# peer, 2 shards of 1.6 GB of state a save) and a node failure before step 26
+E2E_ARGS = dict(steps=40, fail_at=25, ckpt_every=10)
+
+
+def e2e_phase(torch, card):
+    """``python -m repro_torch.launch.train_end_to_end`` through its ``main``: exit 0, one restart from step 20
+    (the latest an SDS search finds), steps [10, 20, 30, 40] found at the end, a falling loss, and per step
+    computed (25 before the failure, 20 after it) 12 f32 flash forward launches (the scalar kernel, remat none)
+    and 12 of each backward kernel."""
+    import contextlib
+    import io
+
+    from repro_torch.launch import train_end_to_end as e2e
+
+    counters = kernel_counters()
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for obj, attr in counters.values():
+        setattr(obj, attr, 0)             # count only this run of the main path
+    printed = io.StringIO()
+    argv = [f"--{k.replace('_', '-')}={v}" for k, v in E2E_ARGS.items()]
+    with contextlib.redirect_stdout(printed):
+        rc = e2e.main(argv)
+    launches = {k: getattr(*c) for k, c in counters.items()}
+    head, _, body = printed.getvalue().partition("\n")
+    result = json.loads(body)
+    steps_run = E2E_ARGS["fail_at"] + E2E_ARGS["steps"] - (E2E_ARGS["fail_at"] // E2E_ARGS["ckpt_every"]
+                                                          * E2E_ARGS["ckpt_every"])
+    n_layers = e2e.build_100m_config().n_layers
+    want = {k: v * steps_run for k, v in launch_counts(n_bwd=n_layers).items()}
+    want.update(flash_attention=n_layers * steps_run, flash_attention_scalar=n_layers * steps_run)
+    stats = dict(argv=argv, model_line=head, exit_code=rc, result=result, steps_computed=steps_run,
+                 kernel_launches=launches, max_memory_allocated_bytes=torch.cuda.max_memory_allocated(),
+                 wall_s=time.perf_counter() - t0, card=card)
+    log("e2e", json.dumps(stats))
+    if rc != 0 or result["restarts"] != 1 or result["final_step"] != E2E_ARGS["steps"]:
+        raise AssertionError(f"e2e: exit {rc}, {result['restarts']} restarts, final step {result['final_step']}")
+    if result["ckpt_steps_discovered_via_sds"] != list(range(10, E2E_ARGS["steps"] + 1, E2E_ARGS["ckpt_every"])):
+        raise AssertionError(f"e2e: SDS finds steps {result['ckpt_steps_discovered_via_sds']}")
+    if not result["last_loss"] < result["first_loss"]:
+        raise AssertionError(f"e2e: loss {result['first_loss']} -> {result['last_loss']}")
+    if launches != want:
+        raise AssertionError(f"e2e: kernel launches {launches}, expected {want}")
+    return stats
 
 
 def library_backward(torch, card, rows):
@@ -1789,13 +2091,14 @@ def library_backward(torch, card, rows):
         del qh, kh, vh, out
 
 
-def backward_entries(rows, train_stats, ckpt_stats, dense_train_stats, moe_train_stats, card):
+def backward_entries(rows, train_stats, ckpt_stats, dense_train_stats, moe_train_stats, jamba_train_stats, card):
     """The kernels line's entries of the backward kernels, at gemma2's training shape, window 4096, at
-    stablelm-3b's (hd 80) and at olmoe-1b-7b's (H16 hd 128)."""
+    stablelm-3b's (hd 80), at olmoe-1b-7b's (H16 hd 128) and at jamba's (H32 Kv8 hd 128, G = 4)."""
     row = next(r for r in rows if r["label"] == "gemma2-train" and r["window"] == 4096)
     same = next(r for r in rows if r["label"] == "gemma2-train-causal")  # softcap 0: SDPA's own function
     hd80 = next(r for r in rows if r["label"] == "stablelm-train")
     olmoe = next(r for r in rows if r["label"] == "olmoe-train")
+    jamba = next(r for r in rows if r["label"] == "jamba-train")
     max_err = max(row["max_abs_err"][g] for g in ("dq", "dk", "dv"))
     return [dict(
         name=f"flash_attention_bwd_{kname}", route="cuda", source="src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
@@ -1820,6 +2123,11 @@ def backward_entries(rows, train_stats, ckpt_stats, dense_train_stats, moe_train
         olmoe_plain_ms=olmoe["plain_ms"], olmoe_bound_ms=olmoe["bound_ms"][kname],
         olmoe_backward_bound_ms=olmoe["bound_ms"]["backward"], olmoe_library_ms=olmoe["library_ms"],
         olmoe_max_abs_err={g: olmoe["max_abs_err"][g] for g in ("dq", "dk", "dv")},
+        launches_jamba_train=jamba_train_stats["kernel_launches"][f"flash_attention_bwd_{kname}"],
+        jamba_shape=jamba["case"], jamba_ms=jamba["kernel_ms"][kname], jamba_backward_ms=jamba["backward_ms"],
+        jamba_plain_ms=jamba["plain_ms"], jamba_bound_ms=jamba["bound_ms"][kname],
+        jamba_backward_bound_ms=jamba["bound_ms"]["backward"], jamba_library_ms=jamba["library_ms"],
+        jamba_max_abs_err={g: jamba["max_abs_err"][g] for g in ("dq", "dk", "dv")},
         card=card) for kname in ("rowdot", "dkdv", "dq")]
 
 
@@ -1842,6 +2150,30 @@ def wkv6_train_entries(rows, rwkv_train_stats, card):
         launches=rwkv_train_stats["kernel_launches"]["wkv6_bwd"], max_abs_err=max(row["max_abs_err"].values()),
         max_abs_err_by_grad=row["max_abs_err"], tol=row["tol"], ms=row["kernel_ms"], plain_ms=row["plain_ms"],
         plain=row["plain"], bound_ms=row["bound_ms"]["backward"], bound_by=row["bound_by"]["backward"], **common,
+    )]
+
+
+def mamba_train_entries(rows, jamba_train_stats, card):
+    """The kernels line's entries of the selective scan's training form and its backward, at jamba's training shape."""
+    row = next(r for r in rows if r["label"] == "jamba-train")
+    common = dict(route="cuda", replaces="src/repro/kernels/mamba_scan.py:76", shape=row["case"], library_ms=None,
+                  library="none", card=card)
+    return [dict(
+        name="mamba_scan_train_form", source="src/repro_torch/kernels/csrc/mamba_scan.cu",
+        replaces_note="mamba_scan_pallas's function, and the state before every 16 tokens for the backward",
+        launches=jamba_train_stats["kernel_launches"]["mamba_scan_train"], max_abs_err=row["forward_max_abs_err"],
+        max_abs_err_note="y and final state against mamba_scan_plain at the scan gate (and bitwise the serving form's)",
+        ms=row["forward_train_ms"], serving_form_ms=row["forward_serve_ms"], plain_ms=row["plain_forward_ms"],
+        plain=row["plain_forward"], bound_ms=row["bound_ms"]["forward_train"],
+        bound_by=row["bound_by"]["forward_train"], **common,
+    ), dict(
+        name="mamba_scan_bwd", source="src/repro_torch/kernels/csrc/mamba_scan_bwd.cu",
+        replaces_note="the gradient of that forward-only Pallas kernel: the reference differentiates its jnp twin "
+                      "ssm_chunked_scan (src/repro/models/mamba.py:82-145) with JAX",
+        launches=jamba_train_stats["kernel_launches"]["mamba_scan_bwd"], max_abs_err=max(row["max_abs_err"].values()),
+        max_abs_err_by_grad=row["max_abs_err"], max_err_over_rms=row["max_err_over_rms"], tol=row["tol"],
+        ms=row["kernel_ms"], plain_ms=row["plain_ms"], plain=row["plain"], bound_ms=row["bound_ms"]["backward"],
+        bound_by=row["bound_by"]["backward"], **common,
     )]
 
 
@@ -1880,6 +2212,8 @@ def main() -> int:
     wkv6_bwd_planted_checks(torch, card, planted)
     scan_rows = run_mamba_cases(torch, card)
     mamba_planted_checks(torch, card, planted)
+    scan_bwd_rows = run_mamba_bwd_cases(torch, card)
+    mamba_bwd_planted_checks(torch, card, planted)
     bwd_rows = run_backward_cases(torch, card)
     for shape in PLANTED_BWD_SHAPES:
         backward_planted_checks(torch, card, planted, shape)
@@ -1969,9 +2303,20 @@ def main() -> int:
     log("time", f"phase 15 (moe-train) took {time.perf_counter() - t_phase:.1f} s, done at "
                 f"{time.perf_counter() - t_start:.1f} s")
 
-    # 16. the backward's library yardstick, after every peak has been read
+    # 16. jamba-v0.1-52b training at full width, cut to pattern positions 1 and 4
+    t_phase = time.perf_counter()
+    jamba_train_stats, _ = train_phase(torch, card, arch="jamba-v0.1-52b", phase="jamba-train",
+                                       n_layers=JAMBA_TRAIN_CUT)
+    log("time", f"phase 16 (jamba-train) took {time.perf_counter() - t_phase:.1f} s, done at "
+                f"{time.perf_counter() - t_start:.1f} s")
+
+    # 17. the end-to-end example's twin, through a node failure
+    e2e_stats = e2e_phase(torch, card)
+    log("time", f"phase 17 (e2e) took {e2e_stats['wall_s']:.1f} s, done at {time.perf_counter() - t_start:.1f} s")
+
+    # 18. the backward's library yardstick, after every peak has been read
     library_backward(torch, card, bwd_rows)
-    log("time", f"phase 16 done at {time.perf_counter() - t_start:.1f} s")
+    log("time", f"phase 18 done at {time.perf_counter() - t_start:.1f} s")
 
     main_row = next(r for r in rows if r["case"].startswith("gemma2-serve-long bfloat16")
                     and r["window"] == 4096)
@@ -2006,7 +2351,8 @@ def main() -> int:
         launches_launcher_nemotron=launcher_stats["kernel_launches"]["flash_attention_wgmma"],
         dense_long_shapes={label: {key: r[key] for key in dense_keys} for label, r in dense_rows.items()},
         card=card,
-    ), *backward_entries(bwd_rows, train_stats, ckpt_stats, dense_train_stats, moe_train_stats, card), dict(
+    ), *backward_entries(bwd_rows, train_stats, ckpt_stats, dense_train_stats, moe_train_stats, jamba_train_stats,
+                         card), dict(
         name="wkv6", route="cuda", source="src/repro_torch/kernels/csrc/wkv6.cu",
         replaces="src/repro/kernels/rwkv6_scan.py:96", launches=rwkv_stats["kernel_launches"]["wkv6"],
         max_abs_err=wkv_row["max_abs_err"], ms=wkv_row["kernel_ms"], plain_ms=wkv_row["plain_ms"],
@@ -2020,8 +2366,9 @@ def main() -> int:
         max_abs_err=scan_row["max_abs_err"], ms=scan_row["kernel_ms"], plain_ms=scan_row["plain_ms"],
         bound_ms=scan_row["bound_ms"], bound_by=scan_row["bound_by"], library_ms=None,
         tol=scan_row["tol"], shape=scan_row["case"], library="none",
-        launches_long_prompt=jamba_long_stats["kernel_launches"]["mamba_scan"], card=card,
-    )]
+        launches_long_prompt=jamba_long_stats["kernel_launches"]["mamba_scan"],
+        launches_jamba_train=jamba_train_stats["kernel_launches"]["mamba_scan"], card=card,
+    ), *mamba_train_entries(scan_bwd_rows, jamba_train_stats, card)]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

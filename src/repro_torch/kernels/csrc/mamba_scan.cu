@@ -57,13 +57,27 @@
 // the lanes of its channel, so that a warp's h0 loads and h_fin stores fill
 // whole 32-byte sectors.
 //
+// Training form (mamba_scan_forward_train).  The same kernel, instantiated with TRAIN,
+// also writes the state before every CK = 16 tokens (mamba_scan_common.cuh) into h_chk
+// [B, ceil(S / CK), di, ds], for the backward (mamba_scan_bwd.cu) to recompute the old
+// states from; the first is h0 (or zero).  A step of the token loop is 2 U = CK tokens,
+// so the state is saved before each step, from the registers that hold it: each lane
+// stores its 16-byte chunk of 4 neighbouring states, and a warp's stores cover
+// 8 channels x 16 states, 512 neighbouring bytes, in whole 32-byte sectors (ds = 16;
+// at ds 4 and 8 a warp's 32 channels or 16 channels are as contiguous).  At f32 B4 S2048
+// di8192 ds16 the saved states are 268 MB, 0.080 ms at the memory rate.  The training
+// form exists for ds in {4, 8, 16}, the backward's instantiations.
+//
 // Inputs, all float32, contiguous and 16-byte aligned: u, delta [B, S, di];
 // A [di, ds]; B, C [B, S, ds]; h0 [B, di, ds] (optional).  Outputs, float32:
-// y [B, S, di] and h_fin [B, di, ds].  Any di: rows of u and delta that are not
-// whole 16-byte chunks (di % 4 != 0) are staged 4 bytes at a time.
+// y [B, S, di], h_fin [B, di, ds] and, in the training form, h_chk.  Any di: rows of
+// u and delta that are not whole 16-byte chunks (di % 4 != 0) are staged 4 bytes at
+// a time.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "mamba_scan_common.cuh"  // CK, LOG2E, ex2
 
 namespace {
 
@@ -71,7 +85,7 @@ constexpr int DC = 1;      // channels per thread
 constexpr int CB = 64;     // channels per block
 constexpr int U = 8;       // tokens per group: one reduce-scatter of the y partials
 constexpr int NSTAGE = 2;  // tiles in the shared-memory ring: NSTAGE - 1 in flight while one is computed
-constexpr float LOG2E = 1.4426950408889634f;
+static_assert(2 * U == CK, "the training form saves the state before each step of 2 U tokens");
 
 // A call of at most U tokens (a decode step) takes the short geometry: 8 states per thread
 // instead of 4, half the threads, so that a decode batch's blocks fit the card in one
@@ -87,16 +101,10 @@ struct Geometry {
   static constexpr int UD = TT * CB, BC = TT * DS;  // floats of u (or delta) and of B (or C) in a tile
   static constexpr int STAGE = 2 * UD + 2 * BC;
   static constexpr int SMEM = NSTAGE * STAGE * 4;  // the ring, in bytes
-  static_assert(L >= 1 && L <= DC * U && CB % (DC * LANE_GROUPS) == 0 && TT % (2 * U) == 0, "tile");
+  static_assert(L >= 1 && L <= DC * U && CB % (DC * LANE_GROUPS) == 0 && TT % (2 * U) == 0 && TT % CK == 0, "tile");
   static_assert((TT * CB / 4) % NT == 0 && TT * CB % NT == 0, "staging");
   static_assert(SMEM <= 48 * 1024, "within the default dynamic shared memory, no opt-in");
 };
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
 
 template <int N>
 __device__ __forceinline__ void load(const float* p, float (&o)[N]) {
@@ -192,12 +200,12 @@ __device__ __forceinline__ void scan_group(const float* us, const float* dts, co
 // decode batch's blocks fit the card in one wave.  Long calls: one block per SM asked, which
 // ptxas takes as leave to use more registers than its default for these block sizes (at ds = 32
 // the default spilled).
-template <int DS, bool SHORT>
+template <int DS, bool SHORT, bool TRAIN>
 __global__ void __launch_bounds__(Geometry<DS, SHORT>::NT, SHORT ? 512 / Geometry<DS, SHORT>::NT : 1)
     mamba_scan_kernel(
     const float* __restrict__ u, const float* __restrict__ delta, const float* __restrict__ A,
     const float* __restrict__ Bm, const float* __restrict__ Cm, const float* __restrict__ h0,
-    float* __restrict__ y, float* __restrict__ h_fin, int seq, int di) {
+    float* __restrict__ y, float* __restrict__ h_fin, float* __restrict__ h_chk, int seq, int di) {
   using Gm = Geometry<DS, SHORT>;
   constexpr int NS = Gm::NS, TT = Gm::TT, L = Gm::L, NT = Gm::NT, KEEP = Gm::KEEP;
   extern __shared__ __align__(16) float smem[];
@@ -226,6 +234,16 @@ __global__ void __launch_bounds__(Geometry<DS, SHORT>::NT, SHORT ? 512 / Geometr
   }
 
   const int ntiles = (seq + TT - 1) / TT;
+  const int nchk = (seq + CK - 1) / CK;
+  auto save = [&](int t) {  // the state before token t, a multiple of CK
+    if constexpr (TRAIN) {
+#pragma unroll
+      for (int c = 0; c < DC; ++c) {
+        const int ch = ch0 + cl0 + c;
+        if (ch < di) store_states<L>(h_chk + (((size_t)b * nchk + t / CK) * di + ch) * DS, sg, h[c]);
+      }
+    }
+  };
   auto stage = [&](int tile) {  // one cp.async group per tile; an empty one past the end
     if (tile >= ntiles) {
       cp_async_commit();
@@ -293,12 +311,14 @@ __global__ void __launch_bounds__(Geometry<DS, SHORT>::NT, SHORT ? 512 / Geometr
       }
     };
     if (SHORT || n <= U) {
+      save(t0);
       float pa[DC * U];
       scan_group<DS, SHORT>(us, dts, bs, cs, 0, sg, cl0, a2, h, pa);
       finish(0, pa);
       continue;
     }
     for (int tt = 0; tt < n; tt += 2 * U) {
+      save(t0 + tt);
       float pa[DC * U], pb[DC * U];
       scan_group<DS, SHORT>(us, dts, bs, cs, tt, sg, cl0, a2, h, pa);
       finish(tt, pa);
@@ -314,23 +334,26 @@ __global__ void __launch_bounds__(Geometry<DS, SHORT>::NT, SHORT ? 512 / Geometr
   }
 }
 
-template <int DS, bool SHORT>
+template <int DS, bool SHORT, bool TRAIN>
 cudaError_t launch_as(const float* u, const float* delta, const float* A, const float* Bm,
-                      const float* Cm, const float* h0, float* y, float* h_fin, int batch, int seq,
-                      int di, cudaStream_t stream) {
+                      const float* Cm, const float* h0, float* y, float* h_fin, float* h_chk, int batch,
+                      int seq, int di, cudaStream_t stream) {
   using Gm = Geometry<DS, SHORT>;
   const dim3 grid((di + CB - 1) / CB, batch);
-  mamba_scan_kernel<DS, SHORT><<<grid, Gm::NT, Gm::SMEM, stream>>>(u, delta, A, Bm, Cm, h0, y, h_fin, seq, di);
+  mamba_scan_kernel<DS, SHORT, TRAIN><<<grid, Gm::NT, Gm::SMEM, stream>>>(u, delta, A, Bm, Cm, h0, y, h_fin,
+                                                                           h_chk, seq, di);
   return cudaGetLastError();
 }
 
-template <int DS>
+template <int DS, bool TRAIN>
 cudaError_t launch(const float* u, const float* delta, const float* A, const float* Bm,
-                   const float* Cm, const float* h0, float* y, float* h_fin, int batch, int seq,
-                   int di, cudaStream_t stream) {
-  return seq <= U ? launch_as<DS, true>(u, delta, A, Bm, Cm, h0, y, h_fin, batch, seq, di, stream)
-                  : launch_as<DS, false>(u, delta, A, Bm, Cm, h0, y, h_fin, batch, seq, di, stream);
+                   const float* Cm, const float* h0, float* y, float* h_fin, float* h_chk, int batch,
+                   int seq, int di, cudaStream_t stream) {
+  return seq <= U ? launch_as<DS, true, TRAIN>(u, delta, A, Bm, Cm, h0, y, h_fin, h_chk, batch, seq, di, stream)
+                  : launch_as<DS, false, TRAIN>(u, delta, A, Bm, Cm, h0, y, h_fin, h_chk, batch, seq, di, stream);
 }
+
+bool bad_shape(int batch, int S, int di) { return batch <= 0 || S <= 0 || di <= 0 || batch > 65535; }
 
 }  // namespace
 
@@ -339,7 +362,7 @@ cudaError_t launch(const float* u, const float* delta, const float* A, const flo
 extern "C" int mamba_scan_forward(const void* u, const void* delta, const void* A, const void* Bm,
                                   const void* Cm, const void* h0, void* y, void* h_fin, int batch,
                                   int S, int di, int ds, void* stream) {
-  if (batch <= 0 || S <= 0 || di <= 0 || batch > 65535) return (int)cudaErrorInvalidValue;
+  if (bad_shape(batch, S, di)) return (int)cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* uf = static_cast<const float*>(u);
   const float* df = static_cast<const float*>(delta);
@@ -350,13 +373,39 @@ extern "C" int mamba_scan_forward(const void* u, const void* delta, const void* 
   float* yf = static_cast<float*>(y);
   float* ff = static_cast<float*>(h_fin);
   switch (ds) {
-    case 4: return (int)launch<4>(uf, df, af, bf, cf, hf, yf, ff, batch, S, di, st);
-    case 8: return (int)launch<8>(uf, df, af, bf, cf, hf, yf, ff, batch, S, di, st);
-    case 16: return (int)launch<16>(uf, df, af, bf, cf, hf, yf, ff, batch, S, di, st);
-    case 32: return (int)launch<32>(uf, df, af, bf, cf, hf, yf, ff, batch, S, di, st);
+    case 4: return (int)launch<4, false>(uf, df, af, bf, cf, hf, yf, ff, nullptr, batch, S, di, st);
+    case 8: return (int)launch<8, false>(uf, df, af, bf, cf, hf, yf, ff, nullptr, batch, S, di, st);
+    case 16: return (int)launch<16, false>(uf, df, af, bf, cf, hf, yf, ff, nullptr, batch, S, di, st);
+    case 32: return (int)launch<32, false>(uf, df, af, bf, cf, hf, yf, ff, nullptr, batch, S, di, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
+
+// The training form: also h_chk [B, ceil(S / CK), di, ds], the state before every CK tokens.
+// ds must be 4, 8 or 16; h0 may be null (zero state).  Returns a cudaError_t (0 = launched).
+extern "C" int mamba_scan_forward_train(const void* u, const void* delta, const void* A, const void* Bm,
+                                        const void* Cm, const void* h0, void* y, void* h_fin, void* h_chk,
+                                        int batch, int S, int di, int ds, void* stream) {
+  if (bad_shape(batch, S, di) || h_chk == nullptr) return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* uf = static_cast<const float*>(u);
+  const float* df = static_cast<const float*>(delta);
+  const float* af = static_cast<const float*>(A);
+  const float* bf = static_cast<const float*>(Bm);
+  const float* cf = static_cast<const float*>(Cm);
+  const float* hf = static_cast<const float*>(h0);
+  float* yf = static_cast<float*>(y);
+  float* ff = static_cast<float*>(h_fin);
+  float* kf = static_cast<float*>(h_chk);
+  switch (ds) {
+    case 4: return (int)launch<4, true>(uf, df, af, bf, cf, hf, yf, ff, kf, batch, S, di, st);
+    case 8: return (int)launch<8, true>(uf, df, af, bf, cf, hf, yf, ff, kf, batch, S, di, st);
+    case 16: return (int)launch<16, true>(uf, df, af, bf, cf, hf, yf, ff, kf, batch, S, di, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+extern "C" int mamba_scan_checkpoint() { return CK; }
 
 extern "C" const char* mamba_scan_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

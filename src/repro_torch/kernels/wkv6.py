@@ -80,7 +80,15 @@ def wkv6_plain(
     """Chunked WKV recurrence in f32; returns (out [B,S,H,C], final state [B,H,C,C]).
 
     Within a chunk, relative decays exp(L_t − L_τ) have non-positive exponents,
-    so the math is stable at any chunk size.
+    so nothing overflows at any chunk size.  Precision does depend on the chunk
+    where decays come near the 1e-38 clamp: the cumulative log-decays L of a
+    chunk then reach thousands in f32, and their differences lose digits.  With
+    4 % of w each at 1e-36, 1e-30, 1e-38, 1e-40 and 0 (f32 B2 S320 H4 C64, output
+    rms 10.4) the form missed the chunk-1 recurrence by 1.0e-3, 3.7e-3 and 1.5e-2
+    at chunks 16, 64 and 256 on the CPU, and by 2.9e-2 at chunk 256 on an H100
+    (f32 B2 S320 H64 C64).  The reference's ``wkv_chunked`` is the same form
+    (``tests/test_torch_wkv6.py::test_chunked_form_loses_precision_near_the_clamp``).
+    At chunk 1 it is the recurrence itself.
     """
     B, S, H, C = r.shape
     chunk = min(chunk, S)

@@ -12,6 +12,7 @@ overhead).  Examples:
     PYTHONPATH=src python -m repro_torch.launch.train --arch gemma2-2b --steps 8 --seq-len 2048 \\
         --global-batch 4 --lr 1e-3
     PYTHONPATH=src python -m repro_torch.launch.train --arch gemma2-2b --smoke --device cpu --ckpt-every 2
+    PYTHONPATH=src python -m repro_torch.launch.train --arch jamba-v0.1-52b --smoke --device cpu
 
 ``--ckpt-every N`` saves every N steps through SCISPACE, as the reference
 launcher does: one in-memory data center ``pod0`` of 2 DTNs, native writes
@@ -24,7 +25,9 @@ gradients and two AdamW moments (16 bytes a parameter) alone pass the card's
 free memory is refused before anything is drawn: rwkv6-7b (7.27 B parameters,
 116 GB) and olmoe-1b-7b (6.92 B, 111 GB) train on one card only cut in depth
 (``build_trainer(..., n_layers=...)``, as ``chip_smoke.py`` does), or as
-``--smoke``.
+``--smoke``; jamba-v0.1-52b (51.6 B parameters, 821 GB) only as a cut of its
+8-layer pattern (``n_layers=(1, 4)``: a Mamba + MoE and the attention layer),
+or as ``--smoke``.
 """
 
 from __future__ import annotations
@@ -34,7 +37,7 @@ import json
 import sys
 import time
 from pathlib import Path
-from typing import Callable, Optional
+from typing import Callable, Optional, Sequence, Union
 
 import torch
 
@@ -49,7 +52,7 @@ from ..optim import AdamW, AdamWConfig
 from ..train import CheckpointManager, Trainer, TrainerConfig
 from .serve import _profiled, _write_profile
 
-__all__ = ["build_trainer", "check_state_fits", "main"]
+__all__ = ["build_trainer", "check_state_fits", "cut_config", "main"]
 
 STATE_BYTES_PER_PARAM = 16  # the f32 master weight, its gradient and the two AdamW moments
 
@@ -66,19 +69,30 @@ def check_state_fits(cfg, free_bytes: int) -> None:
             f"nothing was drawn. Train a depth cut through build_trainer(n_layers=...), as chip_smoke.py does.")
 
 
+def cut_config(cfg, n_layers: Union[int, Sequence[int], None]):
+    """``cfg`` cut in depth: to ``n_layers`` layers, or to one unit of the pattern positions it lists."""
+    if n_layers is None:
+        return cfg
+    if isinstance(n_layers, int):
+        return cfg.replace(n_layers=n_layers)
+    positions = tuple(n_layers)
+    if not positions or any(not 0 <= i < len(cfg.pattern) for i in positions):
+        raise ValueError(f"{cfg.name}: pattern positions {positions} outside its {len(cfg.pattern)}-layer pattern")
+    return cfg.replace(n_layers=len(positions), pattern=tuple(cfg.pattern[i] for i in positions))
+
+
 def build_trainer(arch: str, *, smoke: bool = False, steps: int = 50, seq_len: int = 128, global_batch: int = 8,
                   microbatches: int = 1, lr: float = 3e-3, seed: int = 0, device="cuda",
                   fault_hook: Optional[Callable[[int], None]] = None, ckpt: Optional[CheckpointManager] = None,
-                  ckpt_every: int = 0, n_layers: Optional[int] = None) -> Trainer:
+                  ckpt_every: int = 0, n_layers: Union[int, Sequence[int], None] = None) -> Trainer:
     """The launcher's trainer: the reference's schedule (warmup steps // 10) and data
     (``SyntheticLM(period=16, vocab_eff=256)``), loss chunk min(seq_len, 256); with ``ckpt``, a save
-    every ``ckpt_every`` steps and a restore on a node failure; ``n_layers`` cuts the depth, every
-    width kept."""
+    every ``ckpt_every`` steps and a restore on a node failure.  ``n_layers`` cuts the depth, every
+    width kept: an int keeps that many layers of the repeated pattern; a sequence of pattern
+    positions keeps one unit of just those layers, in that order (jamba's ``(1, 4)``: its first
+    Mamba + MoE layer and its attention layer)."""
     cfg = get_config(arch)
-    if smoke:
-        cfg = smoke_variant(cfg)
-    if n_layers is not None:
-        cfg = cfg.replace(n_layers=n_layers)
+    cfg = cut_config(smoke_variant(cfg) if smoke else cfg, n_layers)
     model = Model(cfg, device=resolve_device(device))
     opt = AdamW(AdamWConfig(peak_lr=lr, warmup_steps=max(steps // 10, 1), total_steps=steps))
     pipe = ShardedPipeline(SyntheticLM(vocab_size=cfg.vocab_size, seq_len=seq_len, period=16, vocab_eff=256),

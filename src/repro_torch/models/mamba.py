@@ -6,11 +6,13 @@ input-dependent step Δ,
     h_t = exp(Δ_t A) ∘ h_{t-1} + (Δ_t u_t) B_t ;  y_t = C_t · h_t
 
 after a causal depthwise convolution of the input half of ``in_proj``, with a
-D skip and a SiLU(z) gate after the scan.  Prefill runs the scan through
+D skip and a SiLU(z) gate after the scan.  Training runs :func:`mamba_layer`,
+the reference's stateless forward, and prefill :func:`mamba_layer_with_state`,
+which keeps the scan's final state; both scan through
 :func:`repro_torch.kernels.mamba_scan.mamba_scan` (the CUDA kernel on a CUDA
-tensor, the plain chunked version on a CPU tensor) and keeps its final
-state; decode is one elementwise update of that state, in plain torch as in
-the reference.  The scan's inputs and its state are f32 whatever the compute
+tensor, the plain chunked version on a CPU tensor; with grad, its autograd
+Function and the backward kernel).  Decode is one elementwise update of the
+state, in plain torch as in the reference.  The scan's inputs and its state are f32 whatever the compute
 dtype; the conv carry is kept in the compute dtype.
 """
 
@@ -27,6 +29,7 @@ from .layers import Init, Params, dense, init_dense
 
 __all__ = [
     "init_mamba",
+    "mamba_layer",
     "mamba_layer_with_state",
     "mamba_decode_step",
     "init_mamba_cache",
@@ -98,12 +101,23 @@ def _gate_out(p: Params, y: torch.Tensor, u: torch.Tensor, z: torch.Tensor, *, d
     return dense(p["out_proj"], y.to(dtype) * F.silu(z), dtype=dtype)
 
 
+def _scan(u, delta, A, Bmat, Cmat, cfg):
+    """The selective scan on f32 operands; B and C are column slices of one projection, and
+    the kernel takes them contiguous."""
+    return mamba_scan(u.float(), delta, A, Bmat.float().contiguous(), Cmat.float().contiguous(), chunk=cfg.ssm_chunk)
+
+
+def mamba_layer(p: Params, x: torch.Tensor, cfg, *, dtype) -> torch.Tensor:
+    """Training forward from the zero state, x: [B,S,D] → [B,S,D]; ``src/repro/models/mamba.py:156-183``."""
+    u, z, delta, A, Bmat, Cmat, _ = _ssm_inputs(p, x, cfg, dtype=dtype)
+    y, _ = _scan(u, delta, A, Bmat, Cmat, cfg)
+    return _gate_out(p, y, u, z, dtype=dtype)
+
+
 def mamba_layer_with_state(p: Params, x: torch.Tensor, cfg, *, dtype):
     """Prefill forward from the zero state; returns (out [B,S,D], conv tail [B,K-1,di], h_final [B,di,ds] f32)."""
     u, z, delta, A, Bmat, Cmat, tail = _ssm_inputs(p, x, cfg, dtype=dtype)
-    # B and C are column slices of one projection: the kernel takes them contiguous
-    y, h_final = mamba_scan(u.float(), delta, A, Bmat.float().contiguous(), Cmat.float().contiguous(),
-                            chunk=cfg.ssm_chunk)
+    y, h_final = _scan(u, delta, A, Bmat, Cmat, cfg)
     return _gate_out(p, y, u, z, dtype=dtype), tail, h_final
 
 

@@ -20,10 +20,9 @@ a ring cache, the reference keeps the last T keys at slots ``0..T-1`` while
 decode writes slot ``pos % T``; here position p always sits at slot ``p % T``
 (ROADMAP.md queue 3).
 
-Training (``lm_hidden``, ``train_loss``) is ported for attention and RWKV-6
-mixers with dense, MoE and channel-mix FFNs (gemma2, codeqwen, stablelm,
-nemotron, rwkv6, olmoe); Mamba mixers wait for the selective scan's backward
-(jamba).  The f32 master weights stay the autograd leaves and every use
+Training (``lm_hidden``, ``train_loss``) is ported for every mixer and FFN of
+the decoder-only family (gemma2, codeqwen, stablelm, nemotron, rwkv6, olmoe,
+jamba), under ``remat`` "none" and "unit".  The f32 master weights stay the autograd leaves and every use
 casts them, so gradients run through the casts.  Each MoE layer's
 load-balance loss is summed over the layers and units into the loss, as the
 reference's unit body carries it.
@@ -41,7 +40,7 @@ from torch.utils.checkpoint import checkpoint
 
 from .attention import attention_layer, decode_attention_layer, init_attention, init_kv_cache
 from .layers import Init, Params, embed, init_embedding, init_mlp, init_norm, mlp, norm, softcap, unembed
-from .mamba import init_mamba, init_mamba_cache, mamba_decode_step, mamba_layer_with_state
+from .mamba import init_mamba, init_mamba_cache, mamba_decode_step, mamba_layer, mamba_layer_with_state
 from .moe import init_moe, moe_layer
 from .rwkv6 import init_rwkv_cache, init_rwkv_cmix, init_rwkv_tmix, rwkv_cmix, rwkv_tmix
 
@@ -194,10 +193,6 @@ def _block(lp, spec, lc, x, mix, cfg, dt):
 
 
 def _check_trainable(cfg) -> None:
-    if any(spec.mixer == "mamba" for spec in cfg.pattern):
-        raise NotImplementedError(
-            f"{cfg.name}: training Mamba mixers is not ported yet; it needs the selective scan's backward, "
-            f"which waits for jamba's training on sharded state (ROADMAP.md queue 1, item 3g)")
     if cfg.remat == "dots":
         raise NotImplementedError(
             f"{cfg.name}: remat='dots' (keep the dense products, recompute the rest) is not ported yet "
@@ -214,6 +209,8 @@ def _train_unit(x: torch.Tensor, aux: torch.Tensor, unit_params, positions: torc
         h = norm(lp["norm1"], x, kind=cfg.norm)
         if spec.mixer == "rwkv":
             mix, _ = rwkv_tmix(lp["mixer"], h, cfg, dtype=dt)
+        elif spec.mixer == "mamba":
+            mix = mamba_layer(lp["mixer"], h, cfg, dtype=dt)
         else:
             mix, _ = attention_layer(lp["mixer"], h, positions, cfg, kind=spec.mixer, dtype=dt)
         x, aux_i = _block(lp, spec, None, x, mix, cfg, dt)

@@ -1,8 +1,9 @@
 """The kernel sources' text edits and their build, checked without a card.
 
 ``chip_smoke.py`` builds copies of the CUDA sources with a fault planted in
-each (``PLANTED``), and ``scripts/flash_variants.py`` builds variants and
-probes (``VARIANTS``, ``BWD_VARIANTS``) by the same text replacement.  Each
+each (``PLANTED``), ``scripts/flash_variants.py`` builds variants and
+probes (``VARIANTS``, ``BWD_VARIANTS``) and ``scripts/scan_bwd_precision.py``
+the scan backward with ``expf`` decays (``EXPF``) by the same text replacement.  Each
 replaced text must stand in its source exactly once, or the copy would not be
 the edit it claims to be; a copy that lies in ``build/`` still finds the
 shared header ``csrc/hopper.cuh``, and an edit of that header must rebuild
@@ -21,8 +22,10 @@ sys.path[:0] = [str(ROOT), str(ROOT / "scripts")]
 
 import chip_smoke  # noqa: E402
 import flash_variants  # noqa: E402
+import scan_bwd_precision  # noqa: E402
 
-TABLES = {**chip_smoke.PLANTED, **flash_variants.VARIANTS, **flash_variants.BWD_VARIANTS}
+TABLES = {**chip_smoke.PLANTED, **flash_variants.VARIANTS, **flash_variants.BWD_VARIANTS,
+          "scan_bwd_expf": scan_bwd_precision.EXPF}
 FLASH_SOURCES = ("flash_attention", "flash_attention_bwd")
 
 

@@ -1,19 +1,19 @@
-"""The selective scan has no CUDA backward yet: a CUDA input that needs grad raises; WKV-6 has one.
+"""Both scans train on the card: a CUDA input that needs grad goes through the scan's autograd Function.
 
-The scan kernel writes its results through ``ctypes``, which autograd cannot
+The scan kernels write their results through ``ctypes``, which autograd cannot
 see; a result with no ``grad_fn`` would silently give the inputs no gradient.
-Until its backward is ported (ROADMAP.md queue 2, item 2), the wrapper refuses
-such a call on the card.  WKV-6 goes through its autograd Function instead:
-on the card its gradients are the backward kernel's, equal to
-``wkv6_bwd_plain``'s at the scan tolerance.  On the CPU both plain versions
-stay differentiable, and a card call under ``torch.no_grad()`` (serving) is
-unchanged.
+So with grad enabled WKV-6 and the selective scan go through their autograd
+Functions: on the card the forward's training form (which also saves the
+state every 16 tokens) and the backward kernel, whose gradients equal the
+plain backward's (``wkv6_bwd_plain``, ``mamba_scan_bwd_plain``) at the scan
+tolerance.  On the CPU both plain versions stay differentiable, and a card
+call under ``torch.no_grad()`` (serving) is unchanged.
 """
 
 import pytest
 import torch
 
-from repro_torch.kernels.mamba_scan import mamba_scan
+from repro_torch.kernels.mamba_scan import mamba_scan, mamba_scan_bwd, mamba_scan_bwd_plain
 from repro_torch.kernels.wkv6 import wkv6, wkv6_bwd, wkv6_bwd_plain
 
 
@@ -100,14 +100,48 @@ def test_cuda_wkv6_backward_is_bitwise_repeatable():
 
 @pytest.mark.gpu
 def test_cuda_mamba_scan_refuses_inputs_that_need_grad():
+    """No longer refused: the CUDA scan's gradients (training form, backward kernel) equal
+    mamba_scan_bwd_plain's at the scan tolerance (atol 1e-4 x rms, rtol 1e-4), each kernel launched once;
+    under torch.no_grad() the serving form runs as before, with no graph."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
     inputs = _scan_inputs("cuda", True)
-    before = mamba_scan.launches
-    with pytest.raises(NotImplementedError, match="queue 2, item 2"):
-        mamba_scan(*inputs, chunk=4)
-    assert mamba_scan.launches == before
+    for x in inputs:
+        x.requires_grad_(True)
+    g = torch.Generator(device="cuda").manual_seed(1)
+    h0 = torch.randn((1, 16, 4), generator=g, device="cuda").requires_grad_()
+    dy = torch.randn((1, 8, 16), generator=g, device="cuda")
+    dh_fin = torch.randn((1, 16, 4), generator=g, device="cuda")
+    before = (mamba_scan.launches, mamba_scan.launches_train, mamba_scan_bwd.launches)
+    y, h = mamba_scan(*inputs, chunk=4, h0=h0)
+    grads = torch.autograd.grad((y * dy).sum() + (h * dh_fin).sum(), (*inputs, h0))
+    torch.cuda.synchronize()
+    assert (mamba_scan.launches, mamba_scan.launches_train, mamba_scan_bwd.launches) == tuple(n + 1 for n in before)
+    want = mamba_scan_bwd_plain(*(x.detach() for x in inputs), h0.detach(), dy, dh_fin)
+    for got, plain in zip(grads, want):
+        rms = plain.pow(2).mean().sqrt().item()
+        torch.testing.assert_close(got, plain, atol=1e-4 * rms, rtol=1e-4)
     with torch.no_grad():
         y, _ = mamba_scan(*inputs, chunk=4)
     torch.cuda.synchronize()
-    assert mamba_scan.launches == before + 1 and y.grad_fn is None
+    assert mamba_scan.launches == before[0] + 2 and mamba_scan.launches_train == before[1] + 1
+    assert y.grad_fn is None
+
+
+@pytest.mark.gpu
+def test_cuda_mamba_scan_backward_is_bitwise_repeatable():
+    """The backward kernel adds no atomics: dB and dC come as per-block partials that torch.sum adds,
+    so two calls on the same inputs give the same bits (a ragged S and a ragged di)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from repro_torch.kernels.mamba_scan import _launch
+
+    g = torch.Generator(device="cuda").manual_seed(2)
+    u, dy = (torch.randn((2, 300, 200), generator=g, device="cuda") for _ in range(2))
+    delta = torch.nn.functional.softplus(torch.randn((2, 300, 200), generator=g, device="cuda"))
+    A = -torch.exp(0.5 * torch.randn((200, 16), generator=g, device="cuda"))
+    Bm, Cm = (torch.randn((2, 300, 16), generator=g, device="cuda") for _ in range(2))
+    _, _, h_chk = _launch(u, delta, A, Bm, Cm, None, train=True)
+    first = mamba_scan_bwd(u, delta, A, Bm, Cm, h_chk, dy)
+    second = mamba_scan_bwd(u, delta, A, Bm, Cm, h_chk, dy)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))

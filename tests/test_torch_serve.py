@@ -204,9 +204,9 @@ def test_entry_points_refuse_to_fall_back_to_cpu(pair, monkeypatch):
 
 def test_unported_layers_raise():
     """Every mixer and FFN kind of the decoder-only family serves now, with a tied or an untied head,
-    and a MoE trains (olmoe); what is left refuses and names its ROADMAP.md item instead of running
-    half a model: training a Mamba mixer (jamba, item 3g) and a MoE with a shared expert (llama4,
-    item 5)."""
+    and trains, a MoE (olmoe) and a Mamba mixer (jamba) included; what is left refuses and names its
+    ROADMAP.md item instead of running half a model: a MoE with a shared expert (llama4, item 5), and
+    remat="dots" in training (item 3h)."""
     olmoe = smoke_variant(get_config("olmoe-1b-7b"))
     model = Model(olmoe, device="cpu")
     params = model.init(torch.Generator().manual_seed(0))
@@ -216,8 +216,11 @@ def test_unported_layers_raise():
     assert torch.isfinite(loss) and float(metrics["moe_aux"]) > 0
     jamba = smoke_variant(get_config("jamba-v0.1-52b"))
     jamba_model = Model(jamba, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item 3g"):
-        jamba_model.train_loss(jamba_model.init(torch.Generator().manual_seed(0)), batch)
+    jamba_params = jamba_model.init(torch.Generator().manual_seed(0))
+    loss, metrics = jamba_model.train_loss(jamba_params, batch)
+    assert torch.isfinite(loss) and float(metrics["moe_aux"]) > 0
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item 3h"):
+        Model(jamba.replace(remat="dots"), device="cpu").train_loss(jamba_params, batch)
     shared = olmoe.replace(moe=dataclasses.replace(olmoe.moe, shared_expert=True))
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 5"):
         Model(shared, device="cpu").init(torch.Generator().manual_seed(0))

@@ -119,14 +119,23 @@ def test_dots_remat_is_refused(jax_side):
 
 
 def test_other_families_are_refused():
-    """Mamba mixers (jamba) still wait for the selective scan's backward; rwkv6 and olmoe train
-    (tests/test_torch_ssm_moe_train.py)."""
+    """No family is refused any more: jamba's Mamba mixers train through the selective scan's autograd
+    Function (tests/test_torch_mamba_train.py holds them to jax.grad), as rwkv6 and olmoe do
+    (tests/test_torch_ssm_moe_train.py); only remat="dots" is refused, for jamba as for gemma2."""
     tcfg = smoke_variant(get_config("jamba-v0.1-52b"))
     model = Model(tcfg, device="cpu")
     params = model.init(torch.Generator().manual_seed(0))
+    flat = convert.flatten(params)
+    for leaf in flat.values():
+        leaf.requires_grad_(True)
     batch = {"tokens": np.zeros((1, 16), np.int32), "targets": np.zeros((1, 16), np.int32)}
-    with pytest.raises(NotImplementedError, match="item 3g"):
-        model.train_loss(params, batch)
+    loss, _ = model.train_loss(params, batch)
+    grads = torch.autograd.grad(loss, list(flat.values()))
+    assert torch.isfinite(loss) and all(torch.isfinite(g).all() for g in grads)
+    mamba_grads = [g for path, g in zip(flat, grads) if "/mixer/A_log" in path]
+    assert mamba_grads and all(g.abs().sum() > 0 for g in mamba_grads)
+    with pytest.raises(NotImplementedError, match="item 3h"):
+        Model(tcfg.replace(remat="dots"), device="cpu").train_loss(params, batch)
 
 
 def test_input_shapes_and_make_batch():

@@ -182,3 +182,45 @@ def test_cuda_kernel_matches_plain(name, with_s0, dtype):
     for got, want in ((out, want_out), (state, want_state)):
         tol = TOL if name in CASES else dict(atol=1e-4 * want.pow(2).mean().sqrt().item(), rtol=1e-4)
         torch.testing.assert_close(got, want, **tol)
+
+
+def test_chunked_form_loses_precision_near_the_clamp():
+    """A recorded property of the chunked form that the port shares with the reference's ``wkv_chunked``.
+
+    With decays near the 1e-38 clamp (4 % of w each at 1e-36, 1e-30, 1e-38, 1e-40 and 0; f32 B2 S320 H4
+    C64) the f32 cumulative log-decays of a chunk reach thousands, and their differences lose digits: the
+    form's error against the chunk-1 recurrence grows with the chunk and at chunk 256 passes the scan gate
+    (here 1.4e-3, 6.1e-3 and 2.2e-2 at chunks 16, 64 and 256 against an output rms of 10.3).  The
+    reference's own form shows the same at the decays it can take on the CPU (1e-36 and 1e-30; under them
+    JAX flushes the clamp to 0 and its output is NaN).  At chunk 1 the form is the recurrence and agrees
+    with the reference's sequential oracle at the scan gate; away from the clamp chunk 256 does too."""
+    r, k, v, w, u, _ = _arrays(2, 320, 4, 64, seed=7)
+    mask = np.random.default_rng(8).random(w.shape)
+    near = {}
+    for values in ((1e-36, 1e-30), (1e-36, 1e-30, 1e-38, 1e-40, 0.0)):
+        wn = w
+        for i, value in enumerate(values):
+            wn = np.where((mask >= 0.04 * i) & (mask < 0.04 * (i + 1)), np.float32(value), wn)
+        near[len(values)] = wn.astype(np.float32)
+    t = torch.from_numpy
+
+    def port(w_, chunk):
+        return wkv6_plain(t(r), t(k), t(v), t(w_), t(u), chunk=chunk)[0].numpy()
+
+    w5 = near[5]
+    exact = port(w5, 1)
+    want, _ = jax_wkv6_ref(*(jnp.asarray(x) for x in (r, k, v, np.maximum(w5, np.float32(1e-38)), u)))
+    np.testing.assert_allclose(exact, np.asarray(want), **TOL)
+    rms = float(np.sqrt((exact ** 2).mean()))
+    errs = {chunk: float(np.abs(port(w5, chunk) - exact).max()) for chunk in (16, 64, 256)}
+    assert errs[16] < errs[64] < errs[256], errs
+    assert 1e-4 * rms < errs[256] < 1e-2 * rms, (errs, rms)
+
+    w2 = near[2]
+    exact2 = port(w2, 1)
+    ref256, _ = wkv_chunked(*(jnp.asarray(x) for x in (r, k, v, w2, u)), chunk=256)
+    rms2 = float(np.sqrt((exact2 ** 2).mean()))
+    for err in (np.abs(np.asarray(ref256) - exact2).max(), np.abs(port(w2, 256) - exact2).max()):
+        assert 1e-4 * rms2 < err < 1e-2 * rms2, (err, rms2)
+
+    np.testing.assert_allclose(port(w, 256), port(w, 1), atol=1e-4 * rms, rtol=1e-4)
