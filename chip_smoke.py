@@ -37,14 +37,16 @@ Phases, each of which raises on failure (the script then exits non-zero):
               backward must beat at gemma2's, stablelm's, olmoe's and jamba's training shapes (olmoe-1b-7b:
               bf16 B4 S=T=2048 H16 Kv16 hd128, softcap 0, window 0; jamba-v0.1-52b's attention layer the
               same at H32 Kv8, four query heads per KV head); phase 2 must report no spill for the
-              bf16 backward kernels (hd 80 runs their 2-box instantiations);
+              bf16 backward kernels (hd 80 runs their 2-box instantiations) nor for any of the WKV-6
+              backward's 8 instantiations;
    wkv6-bwd — WKV-6's training form (the forward that also saves the state before every 16 tokens)
               bitwise the serving form on out and final state, its first saved state s0; the
               backward kernel against wkv6_bwd_plain at the smoke C = 16 (bf16, and f32 with s0
               and ds_fin), rwkv6's training shape (bf16 B4 S2048 H64 C64), a ragged S = 300 with
               s0 and ds_fin and f32 at S = 320, and those last two again with decays near the
               clamp (shares of w at 1e-36, 1e-30, 1e-38 itself, 1e-40 and 0), where dw must be
-              exactly 0 at and under 1e-38: f32 gradients, and dw, du and ds0 in every dtype, at
+              exactly 0 at and under 1e-38, and the kernel's other tilings, C = 8 and 32, in f32
+              and bf16 at a ragged S = 300 with s0 and ds_fin: f32 gradients, and dw, du and ds0 in every dtype, at
               the scan gate, bf16 dr, dk, dv at the backward's bf16 gate (2e-2 x rms, rtol 2e-2);
               two calls bitwise equal; kernel, plain and bound ms of both kernels; the backward
               must beat its plain version at the training shape;
@@ -69,8 +71,11 @@ Phases, each of which raises on failure (the script then exits non-zero):
               stablelm's training shape with softcap 50; at stablelm's G = 1 the first-head-only
               fault changes nothing and must give the committed gradients bitwise, so it runs
               once more at H32 Kv8 hd80, where it must fail; and the WKV-6 backward that (a) drops
-              the bonus from dk and dv, (b) ignores ds_fin, (c) carries dS without the decay or (d)
-              takes dw against S_t instead of S_{t-1}, at f32 B2 S320 H64 C64 with s0 and ds_fin; and the
+              the bonus from dk and dv, (b) ignores ds_fin, (c) carries dS without any decay or
+              (d) takes dw against S_t instead of S_{t-1}, each of which must also pass the gate
+              against the recurrence with the same fault written in (wkv6_bwd_plain_with_fault),
+              and the committed backward fed by a training form whose staged store shifts the
+              saved states' rows by one, at f32 B2 S320 H64 C64 with s0 and ds_fin; and the
               selective scan's backward that (a) carries g without the decay, (b) ignores dh_fin, (c) sums
               dA without its factor delta or (d) takes dC against h_{t-1} instead of h_t, at f32 B2 S320 at
               jamba's width with h0 and dh_fin;
@@ -397,14 +402,33 @@ PLANTED = {
                            "#pragma unroll\n"
                            "          for (int c = 0; c < JC; ++c) st[a][c] = 0.f;\n"
                            "      }\n"),
-    "wkv6_bwd_no_bonus": ("wkv6_bwd", [("store(dk + o, sum + rt * ur * vdot[t]);", "store(dk + o, sum);"),
-                                       ("acc + bonus[t] * dos[t * C + j]", "acc")]),
+    "wkv6_train_rows_shifted": ("wkv6", "*reinterpret_cast<float4*>(dst + (size_t)row * C + 4 * cq) = x;",
+                                "*reinterpret_cast<float4*>(dst + (size_t)((row + 1) % C) * C + 4 * cq) = x;"),
+    "wkv6_bwd_no_bonus": ("wkv6_bwd", [(" + nn[t % 4] + rv * ui * ak[t % 4];", " + nn[t % 4];"),
+                                       ("if (qt % BG == 0) bonus[t] = acc;", "if (qt % BG == 0) bonus[t] = 0.f;")]),
     "wkv6_bwd_ignores_ds_fin": ("wkv6_bwd", "const bool has_dsfin = ds_fin != nullptr;",
                                 "const bool has_dsfin = false;"),
-    "wkv6_bwd_no_decay_in_carry": ("wkv6_bwd", "ds[a][j] = fmaf(ww[a], ds[a][j], rr[a] * dd[j]);",
-                                   "ds[a][j] = ds[a][j] + rr[a] * dd[j];"),
-    "wkv6_bwd_dw_against_new_state": ("wkv6_bwd", "pw = fmaf(ds[a][j], old[i][a][j], pw);",
-                                      "pw = fmaf(ds[a][j], fmaf(ww[a], old[i][a][j], kk[a] * vv[j]), pw);"),
+    # every decay of the dS carry dropped (dS_{t-1} = dS_t + r_t (x) dout_t): F_t, G_L, G_sig o r_sig, P(t, sig)
+    # in B, in N and M and in dw's last sum; S_{t-1}'s own decays (G_t, H, J) kept
+    "wkv6_bwd_no_decay_in_carry": ("wkv6_bwd", [
+        ("GR[t * SP + i] = gt * rr[0];", "GR[t * SP + i] = rr[0];"),
+        ("FK[t * SP + i] = ft * kk[0];", "FK[t * SP + i] = kk[0];"),
+        ("if (sg == 3) GL[i] = up;", "if (sg == 3) GL[i] = 1.f;"),
+        ("for (int x = 0; x < TR; ++x) uu[x] = later ? uu[x] * ww[x] : uu[x];",
+         "for (int x = 0; x < TR; ++x) uu[x] = later ? uu[x] : uu[x];"),
+        ("tp[t] = t + 1 < y0 ? wt[(t + 1) * SP + ci] * (t + 1 < TP ? tp[t + 1] : 1.f) : 1.f;", "tp[t] = 1.f;"),
+        ("const float crw[4] = {rq[0], wq[0] * rq[1], wq[0] * wq[1] * rq[2], wq[0] * wq[1] * wq[2] * rq[3]};",
+         "const float crw[4] = {rq[0], rq[1], rq[2], rq[3]};"),
+        ("{{0.f, rq[1], wq[1] * rq[2], wq[1] * wq[2] * rq[3]},", "{{0.f, rq[1], rq[2], rq[3]},"),
+        ("{0.f, 0.f, rq[2], wq[2] * rq[3]},", "{0.f, 0.f, rq[2], rq[3]},"),
+        ("mm = fmaf(wv, mm, rv * xr[t]);", "mm = fmaf(1.f, mm, rv * xr[t]);"),
+        ("for (int m = 0; m < 4; ++m) nn[m] = fmaf(wv, nn[m], rv * ac[m]);",
+         "for (int m = 0; m < 4; ++m) nn[m] = fmaf(1.f, nn[m], rv * ac[m]);"),
+        ("f *= wv;", "f *= 1.f;")]),
+    # dw_t = rowsum(dS_t o S_t) = w_t rowsum(dS_t o S_{t-1}) + k_t (dS_t v_t), dS_t v_t as dk forms it
+    "wkv6_bwd_dw_against_new_state": ("wkv6_bwd", "const float dwv = fmaf(gk[t % 4], mm, fmaf(f, dwa[t % 4], q));",
+                                      "const float dwv = fmaf(wv, fmaf(gk[t % 4], mm, fmaf(f, dwa[t % 4], q)), "
+                                      "kt[t * SP + ci] * (f * yr[t] + nn[t % 4]));"),
     "mamba_no_drive": ("mamba_scan", "h[c][s] = fmaf(decay, h[c][s], du * bq[s]);", "h[c][s] = decay * h[c][s];"),
     "mamba_ignores_h0": ("mamba_scan", "const bool has_h0 = h0 != nullptr;", "const bool has_h0 = false;"),
     "mamba_reset_halfway": ("mamba_scan", "    for (int tt = 0; tt < n; tt += 2 * U) {\n",
@@ -487,6 +511,11 @@ def build_everything(card):
               if "0 bytes spill stores" not in props or "0 bytes spill loads" not in props}
     if len(tc) != 8 or spills:  # dkdv and dq at 1-4 boxes of 64 columns
         raise AssertionError(f"build: ptxas reports {len(tc)} of the 8 bf16 backward kernels; spills: {spills}")
+    wkv = function_properties(builds["wkv6_bwd"].log)
+    wkv_spills = {fn: props for fn, props in wkv.items()
+                  if "0 bytes spill stores" not in props or "0 bytes spill loads" not in props}
+    if len(wkv) != 8 or wkv_spills:  # C = 8, 16, 32, 64 in f32 and bf16
+        raise AssertionError(f"build: ptxas reports {len(wkv)} of the 8 WKV-6 backward kernels; spills: {wkv_spills}")
     import torch
 
     from repro_torch.kernels.flash_attention import backward_geometry
@@ -879,14 +908,19 @@ def wkv6_bwd_cases():
     f32; rwkv6's training shape (bf16 B4 S2048 H64 C64, no s0 or ds_fin, as training calls it); a ragged
     S = 300 with s0 and ds_fin (a last chunk of 12 tokens); f32 at S = 320.  Then decays near the clamp
     (labels ending in "clamp", see WKV_NEAR_CLAMP) in f32 and bf16, appended so that the earlier cases keep
-    their seeds."""
+    their seeds.  Last, the kernel's other tilings, C = 8 and 32 (H8), in f32 and bf16 at a ragged S = 300 with
+    s0 and ds_fin."""
     return [("smoke", "bfloat16", 2, 64, 4, 16, False),
             ("smoke", "float32", 2, 64, 4, 16, True),
             ("rwkv6-train", "bfloat16", 4, 2048, 64, 64, False),
             ("rwkv6-ragged", "bfloat16", 1, 300, 64, 64, True),
             ("rwkv6-f32", "float32", 2, 320, 64, 64, True),
             ("rwkv6-clamp", "float32", 2, 320, 64, 64, True),
-            ("rwkv6-ragged-clamp", "bfloat16", 1, 300, 64, 64, True)]
+            ("rwkv6-ragged-clamp", "bfloat16", 1, 300, 64, 64, True),
+            ("c8-ragged", "float32", 2, 300, 8, 8, True),
+            ("c8-ragged", "bfloat16", 2, 300, 8, 8, True),
+            ("c32-ragged", "float32", 2, 300, 8, 32, True),
+            ("c32-ragged", "bfloat16", 2, 300, 8, 32, True)]
 
 
 # decays near the reference's clamp max(w, 1e-38), each on a share of w: (share, value).  Above it 1e-36 and
@@ -922,20 +956,26 @@ def wkv6_train_bounds(dtype, B, S, H, C, with_s0, with_dsfin):
     """{"forward_train": ..., "backward": ...}: (least ms, "bytes" or "operations").
 
     The training form is the forward (wkv6_bound's count) plus the states it saves, f32 [B, H, ceil(S / 16), C, C].
-    The backward: 14 C^2 f32 FLOP per token and head (dr, dk, dv, dw a multiply-add per state element each;
-    the dS carry and the old state's recomputation a multiply and a multiply-add each); bytes, each once:
-    r, k, v read and dr, dk, dv written in their dtype, w, dout, dw and the saved states in f32, u, du
-    and ds0 (ds_fin) in f32.
+    The backward's f32 operations are counted in the cheapest form known, the chunked one of csrc/wkv6_bwd.cu's
+    header, per head and chunk of L = 16 tokens: the four C x C x L products (X, Y, Z and E's rank-L update)
+    8 C^2 L; E's decay and q = rowsum(E o S) 3 C^2; the token sums 7.5 C L^2 (A over all L^2 token pairs 2,
+    B over the pairs sig > t with their decays 1.5, dv 1, the recurrences H and N 2, dw's last sum 1); and
+    about 30 C L for the decays' products, J, M and each token's dr, dk, dw, du and bonus.  Bytes, each once:
+    r, k, v read and dr, dk, dv written in their dtype, w, dout, dw and the saved states in f32, u, du and ds0
+    (ds_fin) in f32.
     """
     from repro_torch.kernels.wkv6 import CHECKPOINT
 
-    n, states = B * S * H * C, B * H * -(-S // CHECKPOINT) * C * C
+    L = CHECKPOINT
+    n, nchunk = B * S * H * C, -(-S // L)
+    states = B * H * nchunk * C * C
     elt = 2 if dtype == "bfloat16" else 4
     fwd_ops_ms = 5.0 * B * S * H * C * C / PEAK_FLOPS["float32"] * 1e3
     fwd_bytes_ms = (3 * elt * n + 4 * (2 * n + H * C + (2 if with_s0 else 1) * B * H * C * C + states)) \
         / HBM_BYTES_PER_S * 1e3
     bwd_bytes = 6 * elt * n + 4 * (3 * n + states + 2 * H * C + (2 if with_dsfin else 1) * B * H * C * C)
-    bwd_ops_ms = 14.0 * B * S * H * C * C / PEAK_FLOPS["float32"] * 1e3
+    bwd_ops = B * H * (nchunk * (8.0 * C * C * L + 3.0 * C * C + 7.5 * C * L * L + 30.0 * C * L))
+    bwd_ops_ms = bwd_ops / PEAK_FLOPS["float32"] * 1e3
     bwd_bytes_ms = bwd_bytes / HBM_BYTES_PER_S * 1e3
     return {"forward_train": (max(fwd_ops_ms, fwd_bytes_ms), "bytes" if fwd_bytes_ms >= fwd_ops_ms else "operations"),
             "backward": (max(bwd_ops_ms, bwd_bytes_ms), "bytes" if bwd_bytes_ms >= bwd_ops_ms else "operations")}
@@ -1012,9 +1052,41 @@ def run_wkv6_bwd_cases(torch, card):
     return rows
 
 
+def wkv6_bwd_plain_with_fault(torch, r, k, v, w, u, s0, dout, ds_fin, fault):
+    """wkv6_bwd_plain's recurrence (f32, token by token, every old state kept) with one planted fault written
+    into it, for the planted kernels to be held against: "no_bonus" (dk and dv without the bonus term),
+    "ignores_ds_fin" (the sweep starts from zero), "no_decay" (dS_{t-1} = dS_t + r_t (x) dout_t), "dw_new"
+    (dw_t = rowsum(dS_t o S_t))."""
+    rf, kf, vf, wf, df = (x.float() for x in (r, k, v, w, dout))
+    uf = u.float()
+    state, old = s0.float(), []
+    for t in range(r.shape[1]):
+        old.append(state)
+        state = wf[:, t, :, :, None] * state + kf[:, t, :, :, None] * vf[:, t, :, None, :]
+    old.append(state)
+    vd = (vf * df).sum(-1, keepdim=True)
+    bonus = 0.0 if fault == "no_bonus" else 1.0
+    dr, dk = uf * kf * vd, bonus * rf * uf * vd
+    dv = bonus * (rf * uf * kf).sum(-1, keepdim=True) * df
+    dw = torch.empty_like(wf)
+    ds = torch.zeros_like(s0.float()) if fault == "ignores_ds_fin" else ds_fin.float()
+    for t in reversed(range(r.shape[1])):
+        dr[:, t] += torch.einsum("bhij,bhj->bhi", old[t], df[:, t])
+        dk[:, t] += torch.einsum("bhij,bhj->bhi", ds, vf[:, t])
+        dv[:, t] += torch.einsum("bhij,bhi->bhj", ds, kf[:, t])
+        dw[:, t] = (ds * old[t + 1 if fault == "dw_new" else t]).sum(-1)
+        ds = (1.0 if fault == "no_decay" else wf[:, t, :, :, None]) * ds + rf[:, t, :, :, None] * df[:, t, :, None, :]
+    du = (rf * kf * vd).sum(dim=(0, 1))
+    dw = torch.where(wf > WKV_W_MIN, dw, torch.zeros_like(dw))
+    return dr, dk, dv, dw, du, ds
+
+
 def wkv6_bwd_planted_checks(torch, card, planted):
     """Each faulty build of the WKV-6 backward must put elements of some gradient outside its gate, at f32
-    B2 S320 H64 C64 with s0 and ds_fin, where the committed build puts none."""
+    B2 S320 H64 C64 with s0 and ds_fin, where the committed build puts none, and must itself pass that gate
+    against wkv6_bwd_plain_with_fault, the same fault written into the recurrence: the fault is the one its
+    name says.  So must the committed backward fed by the training form whose staged store shifts the saved
+    states' rows by one fail the gate."""
     import ctypes
 
     import repro_torch.kernels.wkv6 as wk
@@ -1031,24 +1103,46 @@ def wkv6_bwd_planted_checks(torch, card, planted):
     good = outside(wk.wkv6_bwd(r, k, v, w, u, s_chk, dout, ds_fin))
     if any(good.values()):
         raise AssertionError(f"planted: the committed WKV-6 backward fails its own gate: {good}")
-    checks = (("wkv6_bwd_no_bonus", "the bonus term is dropped from dk and dv"),
-              ("wkv6_bwd_ignores_ds_fin", "ds_fin is ignored (the sweep starts from zero)"),
-              ("wkv6_bwd_no_decay_in_carry", "the dS carry has no decay: dS_{t-1} = dS_t + r_t dout_t"),
-              ("wkv6_bwd_dw_against_new_state", "dw is taken against S_t instead of S_{t-1}"))
-    for name, fault in checks:
-        lib = wk._bind_bwd(ctypes.CDLL(str(planted[name])))
-        good_lib, wk._bwd_lib = wk._bwd_lib, lambda: lib
-        try:
-            grads = wk.wkv6_bwd(r, k, v, w, u, s_chk, dout, ds_fin)
+    checks = (("wkv6_bwd_no_bonus", "the bonus term is dropped from dk and dv", "no_bonus"),
+              ("wkv6_bwd_ignores_ds_fin", "ds_fin is ignored (the sweep starts from zero)", "ignores_ds_fin"),
+              ("wkv6_bwd_no_decay_in_carry", "the dS carry has no decay: dS_{t-1} = dS_t + r_t (x) dout_t",
+               "no_decay"),
+              ("wkv6_bwd_dw_against_new_state", "dw is taken against S_t instead of S_{t-1}", "dw_new"))
+    checks += (("wkv6_train_rows_shifted", "the training form's staged store shifts the saved states' rows by one",
+                None),)
+    for name, fault, written_out in checks:
+        train_fault = name.startswith("wkv6_train")
+        lib = (wk._bind if train_fault else wk._bind_bwd)(ctypes.CDLL(str(planted[name])))
+        if train_fault:
+            good_lib, wk._lib = wk._lib, lambda: lib
+            try:
+                _, _, bad_chk = wk._launch(r, k, v, w, u, s0, train=True)
+                torch.cuda.synchronize()
+            finally:
+                wk._lib = good_lib
+            grads = wk.wkv6_bwd(r, k, v, w, u, bad_chk, dout, ds_fin)
             torch.cuda.synchronize()
-        finally:
-            wk._bwd_lib = good_lib
+        else:
+            good_lib, wk._bwd_lib = wk._bwd_lib, lambda: lib
+            try:
+                grads = wk.wkv6_bwd(r, k, v, w, u, s_chk, dout, ds_fin)
+                torch.cuda.synchronize()
+            finally:
+                wk._bwd_lib = good_lib
         bad = outside(grads)
+        as_named = None
+        if written_out:  # the planted kernel against the recurrence with the same fault, at the same gate
+            meaning = wkv6_bwd_plain_with_fault(torch, r, k, v, w, u, s0, dout, ds_fin, written_out)
+            as_named = {g: n_outside(got, want, scan_tol(want)) for g, got, want in zip(WKV_GRADS, grads, meaning)}
+            del meaning
         log("planted", json.dumps(dict(fault=f"WKV-6 backward: {fault}", case=f"float32 B{B} S{S} H{H} C{C} s0 ds_fin",
                                        outside_tol=bad, committed_outside_tol=good, tol=tols,
+                                       outside_tol_of_the_fault_written_out=as_named,
                                        elements={g: x.numel() for g, x in zip(WKV_GRADS, grads)}, card=card)))
         if not any(bad.values()):
             raise AssertionError(f"planted {name}: the WKV-6 backward gate passed a kernel where {fault}")
+        if as_named and any(as_named.values()):
+            raise AssertionError(f"planted {name}: the kernel is not the recurrence where {fault}: {as_named}")
 
 
 # ---------------------------------------------------------------------------

@@ -3,22 +3,25 @@
 
     python3 scripts/scan_variants.py [--baseline CHECKOUT] [VARIANT ...]
 
-A variant is ``src/repro_torch/kernels/csrc/wkv6.cu`` or ``mamba_scan.cu`` with
-a few text replacements (``VARIANTS`` below), written by
+A variant is ``src/repro_torch/kernels/csrc/wkv6.cu``, ``wkv6_bwd.cu`` or
+``mamba_scan.cu`` with a few text replacements (``VARIANTS`` below), written by
 ``chip_smoke.planted_sources`` into ``build/repro_torch/variants/`` and built as
-``chip_smoke.py`` builds its planted faults; naming variants times only those.  Variants named probes compute wrong values
-on purpose: each takes one piece of work out to show what it costs.  At the
-main path's long shapes and the decode shape each build is checked against the
-plain version at ``chip_smoke.py``'s scan gate (the elements outside it are
-counted, not asserted) and timed in turns: committed, each variant, committed.
-Each row gives the CUDA-event time of a whole call (``ms``; at the decode
-shape mostly the host's launch) and the kernel's own device time from
-``torch.profiler`` (``device_us``, the mean over the profiled launches).
-``--baseline CHECKOUT`` adds the two sources of another checkout (for example
-the parent commit, unpacked with ``git archive``) as the build ``baseline``,
-timed in the same turns: the kernels' C interfaces are the same.  It prints one
-JSON line per shape and build, then the card's ``nvidia-smi`` line.  Needs a
-CUDA card; imports nothing of JAX.
+``chip_smoke.py`` builds its planted faults; naming variants times only those.
+Variants named probes compute wrong values on purpose: each takes one piece of
+work out to show what it costs.  At the main path's long shapes, the decode
+shape and rwkv6's training shape (bf16 B4 S2048 H64 C64: the serving form, the
+training form and the backward) each build is checked against the plain
+version at ``chip_smoke.py``'s gates (the elements outside them are counted,
+not asserted) and timed in turns: committed, each variant, committed.  Each row
+gives the CUDA-event time of a whole call (``ms``; at the decode shape mostly
+the host's launch), the kernel's own device time from ``torch.profiler``
+(``device_us``, the mean over the profiled launches), and the build's ptxas
+registers and spills for that shape's instantiations.  ``--baseline CHECKOUT``
+adds the three sources of another checkout (for example the parent commit,
+unpacked with ``git archive`` into ``build/``) as the build ``baseline``, timed
+in the same turns: the kernels' C interfaces are the same.  It prints one JSON
+line per shape and build, then the card's ``nvidia-smi`` line.  Needs a CUDA
+card; imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -35,20 +38,19 @@ ROOT = Path(__file__).resolve().parents[1]
 # name: (kernel source, [(text of the committed source, its replacement), ...]), the form that
 # chip_smoke.planted_sources takes; each text must appear in the source exactly once
 _WKV_PATCH = "template <> struct Patch<64, false> { static constexpr int RI = 4, JC = 2, JB = 32; };"
-_WKV_STEP = """    for (int tt = 0; tt < n; tt += 2 * TK) {
-      float pa[G], pb[G];
+_WKV_STEP = """      float pa[G], pb[G];
       wkv_group<T, C, SHORT>(rs, ks, ws, vs, tt, n, row0, jl0, st, pa);
       finish(tt, pa);
       wkv_group<T, C, SHORT>(rs, ks, ws, vs, tt + TK, n, row0, jl0, st, pb);
       finish(tt + TK, pb);
     }
 """
-_WKV_ONE_GROUP = """    for (int tt = 0; tt < n; tt += TK) {
-      float pa[G];
+_WKV_ONE_GROUP = """      float pa[G];
       wkv_group<T, C, SHORT>(rs, ks, ws, vs, tt, n, row0, jl0, st, pa);
       finish(tt, pa);
     }
 """
+_WKV_LOOP = ("    for (int tt = 0; tt < n; tt += 2 * TK) {\n", "    for (int tt = 0; tt < n; tt += TK) {\n")
 _SCAN_TILE = ("constexpr int DC = 1;      // channels per thread\n"
               "constexpr int CB = 64;     // channels per block\nconstexpr int U = 8; ")
 # probes: each takes one piece of work out, so the values are wrong on purpose
@@ -72,13 +74,20 @@ VARIANTS = {
     "wkv_patch_8x2": _wkv(8, 2),
     "wkv_patch_2x4": _wkv(2, 4),
     "wkv_stages3": _wkv(4, 2, ("NSTAGE = 2;", "NSTAGE = 3;")),
-    "wkv_one_group_per_step": _wkv(4, 2, (_WKV_STEP, _WKV_ONE_GROUP)),
+    "wkv_one_group_per_step": _wkv(4, 2, _WKV_LOOP, (_WKV_STEP, _WKV_ONE_GROUP)),
     "wkv_no_reduce": _wkv(4, 2, _NO_REDUCE),
     "wkv_few_loads": _wkv(4, 2, _WKV_FEW_LOADS),
     "wkv_few_loads_no_reduce": _wkv(4, 2, _WKV_FEW_LOADS, _NO_REDUCE),
     "wkv_long_at_decode": _wkv(4, 2, ("constexpr int SHORT_SEQ = 8;", "constexpr int SHORT_SEQ = 0;")),
     "wkv_short_whole_head": _wkv(4, 2, ("JC = 1, JB = C < 32 ? C : 32; };", "JC = 1, JB = C; };")),
     "wkv_short_identities": _wkv(4, 2, ("    if (SHORT && t >= n) {\n", "    if (false) {\n")),
+    "wkv_bwd_launch1": ("wkv6_bwd", [("MIN_BLOCKS = C == 64 ? 2 : 1;", "MIN_BLOCKS = 1;")]),
+    "wkv_bwd_unroll1": ("wkv6_bwd", [("#pragma unroll 2\n      for (int j = 0; j < C; j += 4) {", "#pragma unroll 1\n      for (int j = 0; j < C; j += 4) {"),
+                                     ("#pragma unroll 2\n      for (int i = 0; i < C; i += 4) {", "#pragma unroll 1\n      for (int i = 0; i < C; i += 4) {")]),
+    "wkv_bwd_no_recurrences": ("wkv6_bwd", [("    if (tid < 4 * C) {\n      float tp[TP];", "    if (false) {\n      float tp[TP];"),
+                                            ("    if (tid < 4 * C) {\n      float nn[4]", "    if (false) {\n      float nn[4]")]),
+    "wkv_bwd_no_products": ("wkv6_bwd", [("#pragma unroll 2\n      for (int j = 0; j < C; j += 4) {", "#pragma unroll 2\n      for (int j = 0; j < 0; j += 4) {"),
+                                         ("#pragma unroll 2\n      for (int i = 0; i < C; i += 4) {", "#pragma unroll 2\n      for (int i = 0; i < 0; i += 4) {")]),
     "scan_dc2_u4": _scan(2, 4),
     "scan_dc2_u8": _scan(2, 8),
     "scan_expf": _scan(1, 8, ("const float decay = ex2(dt[c] * a2[c][s]);",
@@ -106,6 +115,10 @@ CHANGES = {
     "wkv_long_at_decode": "the long geometry (4 x 2 patches, 32-token tiles) for calls of at most 8 tokens too",
     "wkv_short_whole_head": "short calls: one block of 256 threads per head (all C columns) instead of 32 columns",
     "wkv_short_identities": "short calls run a group's tokens past the end as identities instead of skipping them",
+    "wkv_bwd_launch1": "backward: __launch_bounds__ asking one block an SM (up to 255 registers)",
+    "wkv_bwd_unroll1": "backward: the products' loops over C not unrolled (instead of twice)",
+    "wkv_bwd_no_recurrences": "probe, wrong values: backward without the per-row token recurrences (dr, dk, dw)",
+    "wkv_bwd_no_products": "probe, wrong values: backward without the products X, Y and Z",
     "scan_dc2_u4": "2 channels x 4 states per thread (8 states, 4 warps per SM), 4 tokens per group",
     "scan_dc2_u8": "2 channels x 4 states per thread (8 states, 4 warps per SM), 8 tokens per group",
     "scan_expf": "the accurate expf of delta A instead of ex2.approx of delta A log2 e",
@@ -119,10 +132,14 @@ CHANGES = {
 }
 
 
-# (kernel, label, dtype, B, S, width, geometry), width = (H, C) for WKV and (di, ds) for the scan
+# (kernel, label, dtype, B, S, width), width = (H, C) for WKV and (di, ds) for the scan; the kernel
+# "wkv6" is the serving form, "wkv6_train" the training form (the same source), "wkv6_bwd" the backward
 SHAPES = [("wkv6", "rwkv6-long", "bfloat16", 1, 4096, (64, 64)),
           ("wkv6", "rwkv6-long", "float32", 1, 4096, (64, 64)),
           ("wkv6", "rwkv6-decode", "bfloat16", 4, 1, (64, 64)),
+          ("wkv6", "rwkv6-train", "bfloat16", 4, 2048, (64, 64)),
+          ("wkv6_train", "rwkv6-train", "bfloat16", 4, 2048, (64, 64)),
+          ("wkv6_bwd", "rwkv6-train", "bfloat16", 4, 2048, (64, 64)),
           ("mamba_scan", "jamba-long", "float32", 1, 4096, (8192, 16)),
           ("mamba_scan", "jamba-B4", "float32", 4, 1, (8192, 16))]
 
@@ -141,9 +158,18 @@ def device_us(torch, fn, kernel: str, reps: int = 20) -> float | None:
     return sum(times) / len(times) if times else None
 
 
+def ptxas_entries(text: str) -> dict:
+    """{instantiation: "registers ...; spills ..."} from one build's nvcc -Xptxas -v log."""
+    kernels = [line.split("kernel", 1)[-1].split("EEEv")[0] for line in text.splitlines() if "Compiling entry" in line]
+    usage = [line.split(":", 1)[-1].strip() for line in text.splitlines() if "registers" in line]
+    spills = [line.strip() for line in text.splitlines() if "spill stores" in line]
+    return {kernel: f"{regs}; {spill}" for kernel, regs, spill in zip(kernels, usage, spills)}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--baseline", type=Path, help="a checkout whose wkv6.cu and mamba_scan.cu are timed too")
+    parser.add_argument("--baseline", type=Path, help="a checkout whose wkv6.cu, wkv6_bwd.cu and mamba_scan.cu are "
+                                                      "timed too")
     parser.add_argument("variants", nargs="*", metavar="VARIANT", help="time only these (default: all)")
     opts = parser.parse_args()
     if set(opts.variants) - set(VARIANTS):
@@ -160,60 +186,81 @@ def main() -> int:
     from repro_torch.kernels import _build
 
     torch.backends.cuda.matmul.allow_tf32 = False
+    sources = ("wkv6", "wkv6_bwd", "mamba_scan")
     copies = cs.planted_sources({name: VARIANTS[name] for name in opts.variants or VARIANTS}, "variants")
     if opts.baseline:
-        for kernel in ("wkv6", "mamba_scan"):
-            lib = _build.BUILD_DIR / "variants" / f"baseline_{kernel}.so"
-            copies[f"baseline_{kernel}"] = (opts.baseline / "src/repro_torch/kernels/csrc" / f"{kernel}.cu", lib)
-    with ThreadPoolExecutor(max_workers=len(copies)) as pool:
+        for source in sources:
+            lib = _build.BUILD_DIR / "variants" / f"baseline_{source}.so"
+            copies[f"baseline_{source}"] = (opts.baseline / "src/repro_torch/kernels/csrc" / f"{source}.cu", lib)
+    with ThreadPoolExecutor(max_workers=len(copies) + 1) as pool:
+        committed_builds = pool.submit(_build.build, sources)
         logs = dict(zip(copies, pool.map(lambda copy: _build.compile_source(*copy), copies.values())))
-    for name, text in logs.items():  # each build's registers and spills, kernel by kernel
-        kernels = [line.split("kernel", 1)[-1].split("EEEv")[0] for line in text.splitlines() if "Compiling entry" in line]
-        usage = [line.split(":", 1)[-1].strip() for line in text.splitlines() if "registers" in line]
-        spills = [line.strip() for line in text.splitlines() if "spill stores" in line]
-        for kernel, regs, spill in zip(kernels, usage, spills):
-            print(f"# ptxas {name} {kernel}: {regs}; {spill}", flush=True)
-    modules = {"wkv6": wk, "mamba_scan": ms}
-    committed = {kernel: mod._lib() for kernel, mod in modules.items()}
+        logs.update({f"committed_{name}": res.log for name, res in committed_builds.result().items()})
+    ptxas = {name: ptxas_entries(text) for name, text in logs.items()}
+    for name, entries in ptxas.items():  # each build's registers and spills, kernel by kernel
+        for kernel, usage in entries.items():
+            print(f"# ptxas {name} {kernel}: {usage}", flush=True)
+    # kernel: (source, module, the module's library getter, its binder)
+    kinds = {"wkv6": ("wkv6", wk, "_lib", wk._bind), "wkv6_train": ("wkv6", wk, "_lib", wk._bind),
+             "wkv6_bwd": ("wkv6_bwd", wk, "_bwd_lib", wk._bind_bwd), "mamba_scan": ("mamba_scan", ms, "_lib", ms._bind)}
     card = cs.smi_line()
     for seed, (kernel, label, dtype, B, S, (width, depth)) in enumerate(SHAPES, start=300):
-        mod = modules[kernel]
-        paths = {name: lib for name, (_, lib) in copies.items() if VARIANTS.get(name, ("",))[0] == kernel}
+        source, mod, getter, bind = kinds[kernel]
+        committed = getattr(mod, getter)()
+        paths = {name: lib for name, (_, lib) in copies.items() if VARIANTS.get(name, ("",))[0] == source}
         if opts.baseline:
-            paths = {"baseline": copies[f"baseline_{kernel}"][1], **paths}
+            paths = {"baseline": copies[f"baseline_{source}"][1], **paths}
         names = list(paths)
-        libs = {"committed": committed[kernel], **{name: mod._bind(ctypes.CDLL(str(lib))) for name, lib in paths.items()}}
-        if kernel == "wkv6":
+        libs = {"committed": committed, **{name: bind(ctypes.CDLL(str(lib))) for name, lib in paths.items()}}
+        if kernel == "wkv6_bwd":
+            r, k, v, w, u, s0, dout, ds_fin = cs.wkv6_bwd_inputs(torch, dtype, B, S, width, depth, False, seed)
+            _, _, s_chk = wk._launch(r, k, v, w, u, s0, train=True)
+            call = lambda: wk.wkv6_bwd(r, k, v, w, u, s_chk, dout, ds_fin)  # noqa: E731
+            plain = wk.wkv6_bwd_plain(r, k, v, w, u, s0, dout, ds_fin)
+            tols = list(cs.wkv6_bwd_tols(dtype, plain).values())
+            shape = f"{label} {dtype} B{B} S{S} H{width} C{depth}"
+        elif kernel.startswith("wkv6"):
             chunk = cs.WKV_GEOMETRY["rwkv6"][2]
             r, k, v, w, u, s0 = cs.wkv6_case_inputs(torch, dtype, B, S, width, depth, "carried" if S == 1 else "zero",
                                                     seed)
-            call = lambda: wk.wkv6(r, k, v, w, u, chunk=chunk, s0=s0)  # noqa: E731
+            if kernel == "wkv6_train":
+                call = lambda: wk._launch(r, k, v, w, u, s0, train=True)[:2]  # noqa: E731
+            else:
+                call = lambda: wk.wkv6(r, k, v, w, u, chunk=chunk, s0=s0)  # noqa: E731
             plain = wk.wkv6_plain(r, k, v, w, u, chunk=chunk, s0=s0)
+            tols = [cs.scan_tol(p) for p in plain]
             shape = f"{label} {dtype} B{B} S{S} H{width} C{depth}"
         else:
             chunk = cs.SCAN_GEOMETRY["jamba"][2]
             args = cs.mamba_case_inputs(torch, "jamba", B, S, width, depth, "carried" if S == 1 else "zero", seed)
             call = lambda: ms.mamba_scan(*args[:5], chunk=chunk, h0=args[5])  # noqa: E731
             plain = ms.mamba_scan_plain(*args[:5], chunk=chunk, h0=args[5])
+            tols = [cs.scan_tol(p) for p in plain]
             shape = f"{label} float32 B{B} S{S} di{width} ds{depth}"
-        tols = [cs.scan_tol(p) for p in plain]
+        tag = (f"Li{depth}",) + (("bfloat16" if dtype == "bfloat16" else "If",) if source.startswith("wkv6") else ())
         rows = {}
         try:
             for name in ["committed", *names, "committed"]:
-                mod._lib = lambda lib=libs[name]: lib
+                setattr(mod, getter, lambda lib=libs[name]: lib)
                 got = call()
                 torch.cuda.synchronize()
                 row = rows.setdefault(name, dict(
                     outside_tol=sum(cs.n_outside(g, p, t) for g, p, t in zip(got, plain, tols)),
-                    max_abs_err=max((g - p).abs().max().item() for g, p in zip(got, plain)), ms=[], device_us=[]))
+                    max_abs_err=max((g.float() - p.float()).abs().max().item() for g, p in zip(got, plain)),
+                    ms=[], device_us=[]))
                 row["ms"].append(cs.cuda_ms(torch, call))
-                row["device_us"].append(device_us(torch, call, kernel))
+                row["device_us"].append(device_us(torch, call, source))
         finally:
-            mod._lib = lambda lib=committed[kernel]: lib
+            setattr(mod, getter, lambda lib=committed: lib)
         for name, row in rows.items():
             change = "the baseline checkout's source" if name == "baseline" else CHANGES.get(name, "none")
+            build = {"committed": f"committed_{source}", "baseline": f"baseline_{source}"}.get(name, name)
+            regs = {kern: use for kern, use in ptxas.get(build, {}).items() if all(x in kern for x in tag)}
             print(json.dumps(dict(kernel=kernel, shape=shape, build=name, change=change,
-                                  elements=sum(p.numel() for p in plain), tol=tols[0], card=card, **row)), flush=True)
+                                  elements=sum(p.numel() for p in plain), tol=tols[0], ptxas=regs, card=card, **row)),
+                  flush=True)
+        del plain, call
+        torch.cuda.empty_cache()
     print(card)
     return 0
 

@@ -106,12 +106,12 @@
 #include <stdint.h>
 
 #include "hopper.cuh"
+#include "opt_in.cuh"  // opt_in_once, MAX_DEVICES
 
 namespace {
 
 constexpr int MAX_HD = 256;
 constexpr unsigned FULL = 0xffffffffu;
-constexpr int MAX_DEVICES = 64;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -845,21 +845,6 @@ fa_bwd_dq_tc(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ 
 }
 
 }  // namespace tc
-
-// Raises a kernel's dynamic shared-memory limit to `smem` once per device: the
-// attribute stays set for the process, and setting it on every launch was seen
-// to cost ~1.4 ms a launch on short calls (PERF.md §6).
-template <typename Kernel>
-cudaError_t opt_in_once(Kernel kern, int smem, bool (&done)[MAX_DEVICES]) {
-  if (smem <= 48 * 1024) return cudaSuccess;
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  if (dev < MAX_DEVICES && done[dev]) return cudaSuccess;
-  err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err == cudaSuccess && dev < MAX_DEVICES) done[dev] = true;
-  return err;
-}
 
 int nc_of(int hd) { return hd / 64; }
 

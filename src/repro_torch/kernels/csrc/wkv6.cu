@@ -66,11 +66,20 @@
 //
 // Training form.  wkv6_forward_train also writes the state before every CK = 16
 // tokens, s_chk [B, H, ceil(S / CK), C, C] in f32 (the first is s0, or zero), from
-// which the backward (csrc/wkv6_bwd.cu) recomputes the old states it needs.  A
-// boundary falls at the start of a step of two groups (2 TK divides CK at every C),
-// so the write is one patch store per step that starts a chunk; serving passes no
-// s_chk and skips it.  At the training shape (bf16 B4 S2048 H64 C64) the saved
-// states are 537 MB, which adds 0.160 ms to the bytes bound.
+// which the backward (csrc/wkv6_bwd.cu) recomputes the old states it needs.  It is an
+// instantiation of its own (TRAIN, in the geometry serving would take), so the serving
+// form's code is untouched and its out and final state are the serving form's bitwise.  A boundary falls at the start of a tile or, in 32-token tiles,
+// at the start of the step that begins its second half (2 TK divides CK at every C).
+// There each thread puts its patch into a C x JB staging buffer in shared memory (8 KB
+// at C = 64, beside the 36 KB ring in bf16 and 28 KB in f32), and the block stores it
+// as whole 16-byte pieces, eight lanes to each 128-byte row segment.  The buffer's
+// pairs of columns are XOR-swizzled by row group, so that the G lanes of a column
+// write distinct banks and each reader's 16-byte piece is one aligned chunk (its
+// halves swapped on odd groups).  A save at a tile's start costs no barrier of its
+// own; one in mid-tile two.  At the training shape (bf16 B4 S2048 H64 C64) the saved
+// states are 537 MB, which adds 0.160 ms to the bytes bound.  The earlier store, each
+// thread's 4 x 2 patch as 8-byte pieces (16 half-filled sectors a warp store), cost
+// 0.45 ms over the serving form there (PERF.md).
 //
 // Inputs: r, k, v [B, S, H, C] in f32 or bf16; w [B, S, H, C], u [H, C] and
 // s0 [B, H, C, C] (optional) in f32.  Outputs, both f32: out [B, S, H, C] and
@@ -104,25 +113,27 @@ constexpr int ring_bytes(int tt) {
   return NSTAGE * tt * (C * (2 * (int)sizeof(T) + 4) + JB * (int)sizeof(T)) + tt * 4;
 }
 
-template <typename T, int C, bool SHORT>
+template <typename T, int C, bool SHORT, bool TRAIN = false>
 struct Geometry {
   static constexpr int RI = Patch<C, SHORT>::RI, JC = Patch<C, SHORT>::JC, JB = Patch<C, SHORT>::JB;
   static constexpr int G = C / RI;        // lanes that share a column, one per row group
   static constexpr int WCOLS = 32 / G * JC;  // columns of a warp
   static constexpr int NT = 32 * (JB / WCOLS);
   static constexpr int TK = G / JC;       // tokens per group: one reduce-scatter of G (token, column) sums
+  static constexpr int SAVE = TRAIN ? C * JB * 4 : 0;  // the training form's staged state, f32
   // tokens per staged tile: one step of two groups for a short call; else 32, or 16 where
   // 32 would pass the default 48 KB of shared memory (f32 at C = 64), which needs no opt-in
-  static constexpr int TT = SHORT ? 2 * TK : ring_bytes<T, C, JB>(32) <= 48 * 1024 ? 32 : 16;
+  static constexpr int TT = SHORT ? 2 * TK : ring_bytes<T, C, JB>(32) + SAVE <= 48 * 1024 ? 32 : 16;
   static constexpr int LPT = NT / TT;     // prologue: lanes per token ...
   static constexpr int RP = C / LPT;      // ... and rows per lane
   static constexpr int R_BYTES = TT * C * (int)sizeof(T), W_BYTES = TT * C * 4;
   static constexpr int V_BYTES = TT * JB * (int)sizeof(T);
   static constexpr int STAGE = 2 * R_BYTES + W_BYTES + V_BYTES;  // r, k, w, v of one tile
-  static constexpr int SMEM = ring_bytes<T, C, JB>(TT);
+  static constexpr int SMEM = ring_bytes<T, C, JB>(TT) + SAVE;
   static_assert(G <= 32 && 32 % G == 0 && JB % WCOLS == 0 && TT % (2 * TK) == 0, "tile");
   static_assert(NT % TT == 0 && LPT <= 32 && RP % 2 == 0 && V_BYTES % 16 == 0, "prologue");
-  static_assert(SMEM == NSTAGE * STAGE + TT * 4 && SMEM <= 48 * 1024, "within the default shared memory");
+  static_assert(SMEM == NSTAGE * STAGE + TT * 4 + SAVE && SMEM <= 48 * 1024, "within the default shared memory");
+  static_assert(!TRAIN || (JB % 4 == 0 && (SHORT || TT == CK || TT == 2 * CK)), "saved states at tile starts or halves");
   static_assert(!SHORT || TT >= SHORT_SEQ, "a short call is one tile");
   static_assert(SHORT || (CK % (2 * TK) == 0 && TT % CK == 0), "a saved state falls at the start of a step");
 };
@@ -245,12 +256,12 @@ __device__ __forceinline__ void wkv_group(const T* rs, const T* ks, const float*
   }
 }
 
-template <typename T, int C, bool SHORT>
+template <typename T, int C, bool SHORT, bool TRAIN>
 __global__ void __launch_bounds__(Geometry<T, C, SHORT>::NT, SHORT ? 4 : 1) wkv6_kernel(
     const T* __restrict__ r, const T* __restrict__ k, const T* __restrict__ v,
     const float* __restrict__ w, const float* __restrict__ u, const float* __restrict__ s0,
     float* __restrict__ out, float* __restrict__ s_fin, float* __restrict__ s_chk, int seq, int H) {
-  using Gm = Geometry<T, C, SHORT>;
+  using Gm = Geometry<T, C, SHORT, TRAIN>;
   constexpr int RI = Gm::RI, JC = Gm::JC, JB = Gm::JB, G = Gm::G, NT = Gm::NT, TK = Gm::TK, TT = Gm::TT;
   constexpr int LPT = Gm::LPT, RP = Gm::RP;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -282,17 +293,32 @@ __global__ void __launch_bounds__(Geometry<T, C, SHORT>::NT, SHORT ? 4 : 1) wkv6
     }
   }
 
-  // the training form's saved state before token t, a multiple of CK
-  const size_t chk_base = ((size_t)b * H + h) * ((seq + CK - 1) / CK) * C * C;
-  auto save_state = [&](int t) {
-    float* dst = s_chk + chk_base + (size_t)(t / CK) * C * C;
+  // The training form's saved states: each thread's patch into the staging buffer [C][JB], pairs
+  // of columns XOR (row / RI) % (JB / 2); then the block's C x JB state to s_chk as 16-byte pieces.
+  float* saved = reinterpret_cast<float*>(smem + NSTAGE * Gm::STAGE + TT * 4);
+  auto put_saved = [&]() {
 #pragma unroll
     for (int a = 0; a < RI; ++a) {
+      const int row = row0 + a, m = 2 * (row / RI % (JB / 2));
+      if constexpr (JC == 1) {
+        saved[row * JB + (jl0 ^ m)] = st[a][0];
+      } else {
 #pragma unroll
-      for (int c = 0; c < JC; ++c) dst[(size_t)(row0 + a) * C + col0 + jl0 + c] = st[a][c];
+        for (int c = 0; c < JC; c += 2)
+          *reinterpret_cast<float2*>(saved + row * JB + ((jl0 + c) ^ m)) = float2{st[a][c], st[a][c + 1]};
+      }
     }
   };
-  if (s_chk != nullptr) save_state(0);
+  const size_t chk_base = ((size_t)b * H + h) * ((seq + CK - 1) / CK) * C * C + col0;
+  auto store_saved = [&](int t) {  // the state before token t, a multiple of CK
+    float* dst = s_chk + chk_base + (size_t)(t / CK) * C * C;
+    for (int e = tid; e < C * JB / 4; e += NT) {
+      const int row = e / (JB / 4), cq = e % (JB / 4), m = row / RI % (JB / 2);
+      float4 x = *reinterpret_cast<const float4*>(saved + row * JB + 4 * (cq ^ (m >> 1)));
+      if (m & 1) x = float4{x.z, x.w, x.x, x.y};
+      *reinterpret_cast<float4*>(dst + (size_t)row * C + 4 * cq) = x;
+    }
+  };
 
   auto tile_ptrs = [&](int tile, T*& rs, T*& ks, float*& ws, T*& vs) {
     unsigned char* p = smem + tile % NSTAGE * Gm::STAGE;
@@ -323,6 +349,7 @@ __global__ void __launch_bounds__(Geometry<T, C, SHORT>::NT, SHORT ? 4 : 1) wkv6
     cp_async_wait<NSTAGE - 2>();
     __syncthreads();  // this tile has landed, and every thread is done with the previous one
     stage(tile + NSTAGE - 1);  // into the buffer the previous tile used
+    if constexpr (TRAIN) put_saved();  // the state before t0: the last save's readers are past the barrier
     T *rs, *ks, *vs;
     float* ws;
     tile_ptrs(tile, rs, ks, ws, vs);
@@ -344,6 +371,7 @@ __global__ void __launch_bounds__(Geometry<T, C, SHORT>::NT, SHORT ? 4 : 1) wkv6
       }
     }
     __syncthreads();
+    if constexpr (TRAIN) store_saved(t0);
 
     // Token loop: two groups of TK tokens per step, each computed and then reduced; a tile
     // of at most TK tokens (a decode step) takes one group.
@@ -354,14 +382,20 @@ __global__ void __launch_bounds__(Geometry<T, C, SHORT>::NT, SHORT ? 4 : 1) wkv6
       if (t < n) out[base + (size_t)(t0 + t) * stride + col0 + jl] = p[0] + bonus[t] * vj;
     };
     if (n <= TK) {
-      if (s_chk != nullptr && t0 > 0) save_state(t0);  // t0 is a multiple of TT, so of CK
       float pa[G];
       wkv_group<T, C, SHORT>(rs, ks, ws, vs, 0, n, row0, jl0, st, pa);
       finish(0, pa);
       continue;
     }
     for (int tt = 0; tt < n; tt += 2 * TK) {
-      if (s_chk != nullptr && t0 + tt > 0 && (t0 + tt) % CK == 0) save_state(t0 + tt);
+      if constexpr (TRAIN && TT > CK) {
+        if (tt == CK) {      // the state before the tile's second half
+          __syncthreads();   // the staged state before t0 has been stored
+          put_saved();
+          __syncthreads();
+          store_saved(t0 + tt);
+        }
+      }
       float pa[G], pb[G];
       wkv_group<T, C, SHORT>(rs, ks, ws, vs, tt, n, row0, jl0, st, pa);
       finish(tt, pa);
@@ -377,13 +411,13 @@ __global__ void __launch_bounds__(Geometry<T, C, SHORT>::NT, SHORT ? 4 : 1) wkv6
   }
 }
 
-template <typename T, int C, bool SHORT>
+template <typename T, int C, bool SHORT, bool TRAIN>
 cudaError_t launch_as(const void* r, const void* k, const void* v, const float* w, const float* u,
                       const float* s0, float* out, float* s_fin, float* s_chk, int B, int seq, int H,
                       cudaStream_t stream) {
-  using Gm = Geometry<T, C, SHORT>;
+  using Gm = Geometry<T, C, SHORT, TRAIN>;
   const dim3 grid(C / Gm::JB, H, B);
-  wkv6_kernel<T, C, SHORT><<<grid, Gm::NT, Gm::SMEM, stream>>>(
+  wkv6_kernel<T, C, SHORT, TRAIN><<<grid, Gm::NT, Gm::SMEM, stream>>>(
       static_cast<const T*>(r), static_cast<const T*>(k), static_cast<const T*>(v), w, u, s0,
       out, s_fin, s_chk, seq, H);
   return cudaGetLastError();
@@ -393,8 +427,11 @@ template <typename T, int C>
 cudaError_t launch(const void* r, const void* k, const void* v, const float* w, const float* u,
                    const float* s0, float* out, float* s_fin, float* s_chk, int B, int seq, int H,
                    cudaStream_t stream) {
-  return seq <= SHORT_SEQ ? launch_as<T, C, true>(r, k, v, w, u, s0, out, s_fin, s_chk, B, seq, H, stream)
-                          : launch_as<T, C, false>(r, k, v, w, u, s0, out, s_fin, s_chk, B, seq, H, stream);
+  if (s_chk != nullptr)
+    return seq <= SHORT_SEQ ? launch_as<T, C, true, true>(r, k, v, w, u, s0, out, s_fin, s_chk, B, seq, H, stream)
+                            : launch_as<T, C, false, true>(r, k, v, w, u, s0, out, s_fin, s_chk, B, seq, H, stream);
+  return seq <= SHORT_SEQ ? launch_as<T, C, true, false>(r, k, v, w, u, s0, out, s_fin, s_chk, B, seq, H, stream)
+                          : launch_as<T, C, false, false>(r, k, v, w, u, s0, out, s_fin, s_chk, B, seq, H, stream);
 }
 
 template <typename T>

@@ -2,7 +2,8 @@
 
 ``chip_smoke.py`` builds copies of the CUDA sources with a fault planted in
 each (``PLANTED``), ``scripts/flash_variants.py`` builds variants and
-probes (``VARIANTS``, ``BWD_VARIANTS``) and ``scripts/scan_bwd_precision.py``
+probes (``VARIANTS``, ``BWD_VARIANTS``), ``scripts/scan_variants.py`` those of
+the scans and of the WKV-6 backward (``VARIANTS``) and ``scripts/scan_bwd_precision.py``
 the scan backward with ``expf`` decays (``EXPF``) by the same text replacement.  Each
 replaced text must stand in its source exactly once, or the copy would not be
 the edit it claims to be; a copy that lies in ``build/`` still finds the
@@ -23,9 +24,10 @@ sys.path[:0] = [str(ROOT), str(ROOT / "scripts")]
 import chip_smoke  # noqa: E402
 import flash_variants  # noqa: E402
 import scan_bwd_precision  # noqa: E402
+import scan_variants  # noqa: E402
 
 TABLES = {**chip_smoke.PLANTED, **flash_variants.VARIANTS, **flash_variants.BWD_VARIANTS,
-          "scan_bwd_expf": scan_bwd_precision.EXPF}
+          **scan_variants.VARIANTS, "scan_bwd_expf": scan_bwd_precision.EXPF}
 FLASH_SOURCES = ("flash_attention", "flash_attention_bwd")
 
 
@@ -52,6 +54,19 @@ def test_flash_sources_share_the_hopper_helpers(kernel):
                        "CUresult make_map("):
         assert definition in header
         assert definition not in src
+
+
+@pytest.mark.parametrize("kernel", ("flash_attention_bwd", "wkv6_bwd"))
+def test_kernels_above_48_kb_share_the_opt_in_helper(kernel):
+    """Both kernels that take more than 48 KB of shared memory raise the limit through one helper, once per
+    instantiation and device, and define no copy of it."""
+    src = (_build.CSRC / f"{kernel}.cu").read_text()
+    header = (_build.CSRC / "opt_in.cuh").read_text()
+    assert '#include "opt_in.cuh"' in src
+    for definition in ("cudaError_t opt_in_once(", "constexpr int MAX_DEVICES"):
+        assert definition in header
+        assert definition not in src
+    assert "static bool done[MAX_DEVICES]" in src
 
 
 def test_the_build_digest_covers_the_shared_headers(tmp_path, monkeypatch):
@@ -82,3 +97,9 @@ def test_the_nvcc_command_puts_csrc_on_the_include_path(tmp_path, monkeypatch):
     cmd = seen["cmd"]
     assert cmd[cmd.index("-I") + 1] == str(_build.CSRC)
     assert (tmp_path / "copy.so").exists()
+
+
+def test_the_tables_do_not_share_a_name():
+    """One name, one edit: a table merged into TABLES must not hide another's entry."""
+    tables = (chip_smoke.PLANTED, flash_variants.VARIANTS, flash_variants.BWD_VARIANTS, scan_variants.VARIANTS)
+    assert sum(len(t) for t in tables) + 1 == len(TABLES)

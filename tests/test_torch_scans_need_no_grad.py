@@ -99,6 +99,37 @@ def test_cuda_wkv6_backward_is_bitwise_repeatable():
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("C", [8, 16, 32, 64])
+def test_cuda_wkv6_backward_matches_plain_at_every_head_dim(C, dtype):
+    """Every instantiation of the backward kernel (its tiling depends on C) against wkv6_bwd_plain, with s0
+    and ds_fin and a ragged S of 300 (a last chunk of 12 tokens): dr, dk, dv in bf16 at the backward's bf16
+    gate (2e-2 x rms, rtol 2e-2: both round an f32 result to bf16 once), every other gradient at the scan
+    tolerance (1e-4 x rms, rtol 1e-4)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from repro_torch.kernels.wkv6 import _launch
+
+    B, S, H = 2, 300, 4
+    g = torch.Generator(device="cuda").manual_seed(3)
+    r, k, v = (torch.randn((B, S, H, C), generator=g, device="cuda").to(getattr(torch, dtype)) for _ in range(3))
+    w = torch.rand((B, S, H, C), generator=g, device="cuda") * 0.5 + 0.45
+    u = 0.1 * torch.randn((H, C), generator=g, device="cuda")
+    s0, ds_fin = (torch.randn((B, H, C, C), generator=g, device="cuda") for _ in range(2))
+    dout = torch.randn((B, S, H, C), generator=g, device="cuda")
+    _, _, s_chk = _launch(r, k, v, w, u, s0, train=True)
+    before = wkv6_bwd.launches
+    grads = wkv6_bwd(r, k, v, w, u, s_chk, dout, ds_fin)
+    torch.cuda.synchronize()
+    assert wkv6_bwd.launches == before + 1
+    want = wkv6_bwd_plain(r, k, v, w, u, s0, dout, ds_fin)
+    for name, got, plain in zip(("dr", "dk", "dv", "dw", "du", "ds0"), grads, want):
+        rel = 2e-2 if dtype == "bfloat16" and name in ("dr", "dk", "dv") else 1e-4
+        rms = plain.float().pow(2).mean().sqrt().item()
+        torch.testing.assert_close(got, plain, atol=rel * rms, rtol=rel, msg=lambda m: f"{name}: {m}")
+
+
+@pytest.mark.gpu
 def test_cuda_mamba_scan_refuses_inputs_that_need_grad():
     """No longer refused: the CUDA scan's gradients (training form, backward kernel) equal
     mamba_scan_bwd_plain's at the scan tolerance (atol 1e-4 x rms, rtol 1e-4), each kernel launched once;
