@@ -37,8 +37,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
               backward must beat at gemma2's, stablelm's, olmoe's and jamba's training shapes (olmoe-1b-7b:
               bf16 B4 S=T=2048 H16 Kv16 hd128, softcap 0, window 0; jamba-v0.1-52b's attention layer the
               same at H32 Kv8, four query heads per KV head); phase 2 must report no spill for the
-              bf16 backward kernels (hd 80 runs their 2-box instantiations) nor for any of the WKV-6
-              backward's 8 instantiations;
+              bf16 backward kernels (hd 80 runs their 2-box instantiations), for any of the WKV-6
+              backward's 8 instantiations nor for any of the scan backward's 3 (ds 4, 8, 16);
    wkv6-bwd — WKV-6's training form (the forward that also saves the state before every 16 tokens)
               bitwise the serving form on out and final state, its first saved state s0; the
               backward kernel against wkv6_bwd_plain at the smoke C = 16 (bf16, and f32 with s0
@@ -77,8 +77,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
               and the committed backward fed by a training form whose staged store shifts the
               saved states' rows by one, at f32 B2 S320 H64 C64 with s0 and ds_fin; and the
               selective scan's backward that (a) carries g without the decay, (b) ignores dh_fin, (c) sums
-              dA without its factor delta or (d) takes dC against h_{t-1} instead of h_t, at f32 B2 S320 at
-              jamba's width with h0 and dh_fin;
+              dA without its factor delta, (d) takes dC against h_{t-1} instead of h_t or (e) stages the
+              next span's saved state for every span but the last, at f32 B2 S320 at jamba's width with h0
+              and dh_fin;
 4. serve    — gemma2-2b at full width (26 layers, bf16 compute, f32 weights from a
               seeded torch.Generator) through ServeEngine: 8 prompts of 4-24 tokens,
               4 slots, 16 new tokens, greedy; flash attention must launch exactly 26
@@ -443,8 +444,12 @@ PLANTED = {
     "mamba_bwd_ignores_dh_fin": ("mamba_scan_bwd", "const bool has_dhfin = dh_fin != nullptr;",
                                  "const bool has_dhfin = false;"),
     "mamba_bwd_dA_without_delta": ("mamba_scan_bwd", "dA[s] = fmaf(gah, dt, dA[s]);", "dA[s] += gah;"),
-    "mamba_bwd_dC_from_old_state": ("mamba_scan_bwd", "pbc[(2 * k + 1) * NS + s] = fmaf(a, hs[i][s], x * bq[s]) * dyt;",
-                                    "pbc[(2 * k + 1) * NS + s] = hs[i][s] * dyt;"),
+    "mamba_bwd_dC_from_old_state": ("mamba_scan_bwd",
+                                    "pbc[s / 2 * 4 + 2 + s % 2] = (k + 1 < CK ? hs[k + 1][s] : fmaf(a, ho[s], x * bq[s])) * dyt;",
+                                    "pbc[s / 2 * 4 + 2 + s % 2] = ho[s] * dyt;"),
+    # every span but the last recomputes its old states from the next span's saved state
+    "mamba_bwd_state_from_next_span": ("mamba_scan_bwd", "(live ? (((size_t)b * nchunk + c) * di + ch) * DS",
+                                       "(live ? (((size_t)b * nchunk + min(c + 1, nchunk - 1)) * di + ch) * DS"),
     "flash_bwd_no_softcap_derivative": ("flash_attention_bwd", "pd = p * (1.f - t * t);", "pd = p;"),
     "flash_bwd_first_head_only": ("flash_attention_bwd", "const int n_items = group * nq;",
                                   "const int n_items = nq;"),
@@ -506,16 +511,16 @@ def build_everything(card):
         for line in res.log.splitlines():
             if any(key in line for key in ("Compiling entry", "registers", "spill")):
                 log("build", f"{res.name}: {line.strip()}")
-    tc = {fn: props for fn, props in function_properties(builds["flash_attention_bwd"].log).items() if "_tc" in fn}
-    spills = {fn: props for fn, props in tc.items()
-              if "0 bytes spill stores" not in props or "0 bytes spill loads" not in props}
-    if len(tc) != 8 or spills:  # dkdv and dq at 1-4 boxes of 64 columns
-        raise AssertionError(f"build: ptxas reports {len(tc)} of the 8 bf16 backward kernels; spills: {spills}")
-    wkv = function_properties(builds["wkv6_bwd"].log)
-    wkv_spills = {fn: props for fn, props in wkv.items()
+    # (source, kernels that must not spill, how many): the bf16 flash backward's dkdv and dq at 1-4 boxes of 64
+    # columns; the WKV-6 backward at C = 8, 16, 32, 64 in f32 and bf16; the scan backward at ds 4, 8, 16
+    for source, what, count in (("flash_attention_bwd", "bf16 backward", 8), ("wkv6_bwd", "WKV-6 backward", 8),
+                                ("mamba_scan_bwd", "scan backward", 3)):
+        fns = {fn: props for fn, props in function_properties(builds[source].log).items()
+               if source != "flash_attention_bwd" or "_tc" in fn}
+        spills = {fn: props for fn, props in fns.items()
                   if "0 bytes spill stores" not in props or "0 bytes spill loads" not in props}
-    if len(wkv) != 8 or wkv_spills:  # C = 8, 16, 32, 64 in f32 and bf16
-        raise AssertionError(f"build: ptxas reports {len(wkv)} of the 8 WKV-6 backward kernels; spills: {wkv_spills}")
+        if len(fns) != count or spills:
+            raise AssertionError(f"build: ptxas reports {len(fns)} of the {count} {what} kernels; spills: {spills}")
     import torch
 
     from repro_torch.kernels.flash_attention import backward_geometry
@@ -1448,7 +1453,8 @@ def mamba_bwd_planted_checks(torch, card, planted):
     checks = (("mamba_bwd_no_decay_in_carry", "the carry has no decay: g_t-1 = C dy + g_t"),
               ("mamba_bwd_ignores_dh_fin", "dh_fin is ignored (the sweep starts from zero)"),
               ("mamba_bwd_dA_without_delta", "dA sums g a h_t-1 without its factor delta"),
-              ("mamba_bwd_dC_from_old_state", "dC is taken against h_t-1 instead of h_t"))
+              ("mamba_bwd_dC_from_old_state", "dC is taken against h_t-1 instead of h_t"),
+              ("mamba_bwd_state_from_next_span", "each span but the last recomputes from the next span's saved state"))
     for name, fault in checks:
         lib = ms._bind_bwd(ctypes.CDLL(str(planted[name])))
         good_lib, ms._bwd_lib = ms._bwd_lib, lambda: lib

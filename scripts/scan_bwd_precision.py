@@ -32,8 +32,8 @@ B, S, DI, DS = 4, 2048, 8192, 16
 
 # the accurate exponential, as a text edit of the committed backward
 EXPF = ("mamba_scan_bwd", [
-    ("h[s] = fmaf(ex2(dt * a2[s]), h[s], x * bq[s]);", "h[s] = fmaf(expf(dt * av[s]), h[s], x * bq[s]);"),
-    ("const float a = ex2(dt * a2[s]);", "const float a = expf(dt * av[s]);"),
+    ("h[s] = fmaf(ex2(dt * a2[s]), h[s], x * bq[s]);", "h[s] = fmaf(expf(dt * (a2[s] * LN2)), h[s], x * bq[s]);"),
+    ("const float a = ex2(dt * a2[s]);", "const float a = expf(dt * (a2[s] * LN2));"),  # the sweep's
 ])
 
 

@@ -1,27 +1,31 @@
 #!/usr/bin/env python3
 """Hold variants of the WKV-6 and selective-scan sources against the committed kernels on one card.
 
-    python3 scripts/scan_variants.py [--baseline CHECKOUT] [VARIANT ...]
+    python3 scripts/scan_variants.py [--baseline CHECKOUT] [--kernels KERNEL ...] [VARIANT ...]
 
-A variant is ``src/repro_torch/kernels/csrc/wkv6.cu``, ``wkv6_bwd.cu`` or
-``mamba_scan.cu`` with a few text replacements (``VARIANTS`` below), written by
-``chip_smoke.planted_sources`` into ``build/repro_torch/variants/`` and built as
-``chip_smoke.py`` builds its planted faults; naming variants times only those.
-Variants named probes compute wrong values on purpose: each takes one piece of
-work out to show what it costs.  At the main path's long shapes, the decode
-shape and rwkv6's training shape (bf16 B4 S2048 H64 C64: the serving form, the
-training form and the backward) each build is checked against the plain
-version at ``chip_smoke.py``'s gates (the elements outside them are counted,
-not asserted) and timed in turns: committed, each variant, committed.  Each row
-gives the CUDA-event time of a whole call (``ms``; at the decode shape mostly
-the host's launch), the kernel's own device time from ``torch.profiler``
-(``device_us``, the mean over the profiled launches), and the build's ptxas
-registers and spills for that shape's instantiations.  ``--baseline CHECKOUT``
-adds the three sources of another checkout (for example the parent commit,
-unpacked with ``git archive`` into ``build/``) as the build ``baseline``, timed
-in the same turns: the kernels' C interfaces are the same.  It prints one JSON
-line per shape and build, then the card's ``nvidia-smi`` line.  Needs a CUDA
-card; imports nothing of JAX.
+A variant is ``src/repro_torch/kernels/csrc/wkv6.cu``, ``wkv6_bwd.cu``,
+``mamba_scan.cu`` or ``mamba_scan_bwd.cu`` with a few text replacements
+(``VARIANTS`` below), written by ``chip_smoke.planted_sources`` into
+``build/repro_torch/variants/`` and built as ``chip_smoke.py`` builds its
+planted faults; naming variants times only those.  Variants named probes
+compute wrong values on purpose: each takes one piece of work out to show what
+it costs.  At the main path's long shapes, the decode shape and the training
+shapes (rwkv6's bf16 B4 S2048 H64 C64 and jamba's f32 B4 S2048 di8192 ds16:
+the serving form, the training form and the backward of each) each build is
+checked at ``chip_smoke.py``'s gates (the elements outside them are counted,
+not asserted; the scan backward against the exact gradients, its plain
+version in f64) and timed in turns: committed, each variant, committed.
+``--kernels`` keeps the shapes of the kernels named (``wkv6``, ``wkv6_train``,
+``wkv6_bwd``, ``mamba_scan``, ``mamba_scan_train``, ``mamba_scan_bwd``).  Each
+row gives the CUDA-event time of a whole call (``ms``; at the decode shape
+mostly the host's launch), the kernel's own device time from
+``torch.profiler`` (``device_us``, the mean over the profiled launches), and
+the build's ptxas registers and spills for that shape's instantiations.
+``--baseline CHECKOUT`` adds the four sources of another checkout (for example
+the parent commit, unpacked with ``git archive`` into ``build/``) as the build
+``baseline``, timed in the same turns: the kernels' C interfaces are the same.
+It prints one JSON line per shape and build, then the card's ``nvidia-smi``
+line.  Needs a CUDA card; imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -102,6 +106,24 @@ VARIANTS = {
     "scan_scalar_state_stores": _scan(1, 8, (
         "*reinterpret_cast<float4*>(row + (q * L + sg) * 4) = float4{o[4 * q], o[4 * q + 1], o[4 * q + 2], o[4 * q + 3]};",
         "for (int s = 0; s < 4; ++s) row[(q * L + sg) * 4 + s] = o[4 * q + s];")),
+    # the scan backward: probes, then the designs its committed one was measured against
+    "scan_bwd_no_mufu": ("mamba_scan_bwd", [("h[s] = fmaf(ex2(dt * a2[s]), h[s], x * bq[s]);",
+                                             "h[s] = fmaf(fmaf(dt, a2[s], 1.f), h[s], x * bq[s]);"),
+                                            ("const float a = ex2(dt * a2[s]);", "const float a = fmaf(dt, a2[s], 1.f);")]),
+    "scan_bwd_no_bc_reduce": ("mamba_scan_bwd", [(
+        "#pragma unroll\n      for (int j = 0; j < NS; ++j) pbc[j] += __shfl_xor_sync(0xffffffffu, pbc[j + NS], 16);\n"
+        "      reduce_scatter<8, 4, 2>(pbc, lane);\n", "")]),
+    "scan_bwd_no_du_reduce": ("mamba_scan_bwd", [("        reduce_scatter<L / 2, 1, UD>(pdu, lane);\n", "")]),
+    "scan_bwd_no_recompute": ("mamba_scan_bwd", [("          h[s] = fmaf(ex2(dt * a2[s]), h[s], x * bq[s]);\n", "")]),
+    "scan_bwd_state_plain_load": ("mamba_scan_bwd", [
+        ("      cp_async16(hsh + tid * NS, h_chk", "      if (false) cp_async16(hsh + tid * NS, h_chk"),
+        ("      load4(hsh + tid * NS, h);",
+         "      load4(h_chk + (live ? (((size_t)b * nchunk + c) * di + ch) * DS + sg * NS : 0), h);"),
+        ("        load4(hsh + tid * NS, ho);",
+         "        load4(h_chk + (live ? (((size_t)b * nchunk + c) * di + ch) * DS + sg * NS : 0), ho);")]),
+    "scan_bwd_one_block": ("mamba_scan_bwd", [("constexpr int MIN_BLOCKS = 2; ", "constexpr int MIN_BLOCKS = 1; ")]),
+    "scan_bwd_cb128": ("mamba_scan_bwd", [("constexpr int CB = 64; ", "constexpr int CB = 128;"),
+                                          ("constexpr int MIN_BLOCKS = 2; ", "constexpr int MIN_BLOCKS = 1; ")]),
 }
 CHANGES = {
     "wkv_patch_4x4": "C = 64: 4 x 4 state patch per thread (16 elements, 16 lanes per column, 4 warps per SM)",
@@ -129,11 +151,20 @@ CHANGES = {
     "scan_short_two_groups": "short calls compile the two-group loop too, as long ones do",
     "scan_default_launch_bounds": "__launch_bounds__ with the block size alone (no blocks per SM asked)",
     "scan_scalar_state_stores": "h_fin stored one float at a time instead of one 16-byte chunk",
+    "scan_bwd_no_mufu": "probe, wrong values: backward with every decay as an FMA instead of ex2 (no MUFU)",
+    "scan_bwd_no_bc_reduce": "probe, wrong values: backward without the dB / dC reduce-scatter across the warp's channels",
+    "scan_bwd_no_du_reduce": "probe, wrong values: backward without the du / ddelta reduce-scatter across a channel's lanes",
+    "scan_bwd_no_recompute": "probe, wrong values: backward without the recompute (every old state the saved one)",
+    "scan_bwd_state_plain_load": "backward: the span's saved state loaded from device memory in front of the recompute "
+                                 "instead of staged by cp.async with the tile",
+    "scan_bwd_one_block": "backward: __launch_bounds__ asking one block an SM (up to 255 registers)",
+    "scan_bwd_cb128": "backward: 128 channels a block (512 threads, one block an SM): half the dB / dC partials",
 }
 
 
-# (kernel, label, dtype, B, S, width), width = (H, C) for WKV and (di, ds) for the scan; the kernel
-# "wkv6" is the serving form, "wkv6_train" the training form (the same source), "wkv6_bwd" the backward
+# (kernel, label, dtype, B, S, width), width = (H, C) for WKV and (di, ds) for the scan; the kernels
+# "wkv6" and "mamba_scan" are the serving forms, "wkv6_train" and "mamba_scan_train" the training forms
+# (the same sources), "wkv6_bwd" and "mamba_scan_bwd" the backwards
 SHAPES = [("wkv6", "rwkv6-long", "bfloat16", 1, 4096, (64, 64)),
           ("wkv6", "rwkv6-long", "float32", 1, 4096, (64, 64)),
           ("wkv6", "rwkv6-decode", "bfloat16", 4, 1, (64, 64)),
@@ -141,7 +172,9 @@ SHAPES = [("wkv6", "rwkv6-long", "bfloat16", 1, 4096, (64, 64)),
           ("wkv6_train", "rwkv6-train", "bfloat16", 4, 2048, (64, 64)),
           ("wkv6_bwd", "rwkv6-train", "bfloat16", 4, 2048, (64, 64)),
           ("mamba_scan", "jamba-long", "float32", 1, 4096, (8192, 16)),
-          ("mamba_scan", "jamba-B4", "float32", 4, 1, (8192, 16))]
+          ("mamba_scan", "jamba-B4", "float32", 4, 1, (8192, 16)),
+          ("mamba_scan_train", "jamba-train", "float32", 4, 2048, (8192, 16)),
+          ("mamba_scan_bwd", "jamba-train", "float32", 4, 2048, (8192, 16))]
 
 
 def device_us(torch, fn, kernel: str, reps: int = 20) -> float | None:
@@ -168,8 +201,10 @@ def ptxas_entries(text: str) -> dict:
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--baseline", type=Path, help="a checkout whose wkv6.cu, wkv6_bwd.cu and mamba_scan.cu are "
-                                                      "timed too")
+    parser.add_argument("--baseline", type=Path, help="a checkout whose wkv6.cu, wkv6_bwd.cu, mamba_scan.cu and "
+                                                      "mamba_scan_bwd.cu are timed too")
+    parser.add_argument("--kernels", nargs="+", choices=sorted({shape[0] for shape in SHAPES}),
+                        help="time only the shapes of these kernels (default: all)")
     parser.add_argument("variants", nargs="*", metavar="VARIANT", help="time only these (default: all)")
     opts = parser.parse_args()
     if set(opts.variants) - set(VARIANTS):
@@ -186,7 +221,7 @@ def main() -> int:
     from repro_torch.kernels import _build
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    sources = ("wkv6", "wkv6_bwd", "mamba_scan")
+    sources = ("wkv6", "wkv6_bwd", "mamba_scan", "mamba_scan_bwd")
     copies = cs.planted_sources({name: VARIANTS[name] for name in opts.variants or VARIANTS}, "variants")
     if opts.baseline:
         for source in sources:
@@ -202,9 +237,13 @@ def main() -> int:
             print(f"# ptxas {name} {kernel}: {usage}", flush=True)
     # kernel: (source, module, the module's library getter, its binder)
     kinds = {"wkv6": ("wkv6", wk, "_lib", wk._bind), "wkv6_train": ("wkv6", wk, "_lib", wk._bind),
-             "wkv6_bwd": ("wkv6_bwd", wk, "_bwd_lib", wk._bind_bwd), "mamba_scan": ("mamba_scan", ms, "_lib", ms._bind)}
+             "wkv6_bwd": ("wkv6_bwd", wk, "_bwd_lib", wk._bind_bwd), "mamba_scan": ("mamba_scan", ms, "_lib", ms._bind),
+             "mamba_scan_train": ("mamba_scan", ms, "_lib", ms._bind),
+             "mamba_scan_bwd": ("mamba_scan_bwd", ms, "_bwd_lib", ms._bind_bwd)}
     card = cs.smi_line()
     for seed, (kernel, label, dtype, B, S, (width, depth)) in enumerate(SHAPES, start=300):
+        if opts.kernels and kernel not in opts.kernels:
+            continue
         source, mod, getter, bind = kinds[kernel]
         committed = getattr(mod, getter)()
         paths = {name: lib for name, (_, lib) in copies.items() if VARIANTS.get(name, ("",))[0] == source}
@@ -230,10 +269,22 @@ def main() -> int:
             plain = wk.wkv6_plain(r, k, v, w, u, chunk=chunk, s0=s0)
             tols = [cs.scan_tol(p) for p in plain]
             shape = f"{label} {dtype} B{B} S{S} H{width} C{depth}"
+        elif kernel == "mamba_scan_bwd":  # held against the exact gradients at chip_smoke.py's gate
+            u, delta, A, Bm, Cm, h0, dy, dh_fin = cs.mamba_bwd_inputs(torch, "jamba", B, S, width, depth, False, seed)
+            _, _, h_chk = ms._launch(u, delta, A, Bm, Cm, h0, train=True)
+            call = lambda: ms.mamba_scan_bwd(u, delta, A, Bm, Cm, h_chk, dy, dh_fin)  # noqa: E731
+            f32 = ms.mamba_scan_bwd_plain(u, delta, A, Bm, Cm, h0, dy, dh_fin)
+            plain = cs.mamba_bwd_exact(ms, u, delta, A, Bm, Cm, h0, dy, dh_fin)
+            tols = list(cs.mamba_bwd_tols(plain, f32).values())
+            del f32
+            shape = f"{label} float32 B{B} S{S} di{width} ds{depth}"
         else:
             chunk = cs.SCAN_GEOMETRY["jamba"][2]
             args = cs.mamba_case_inputs(torch, "jamba", B, S, width, depth, "carried" if S == 1 else "zero", seed)
-            call = lambda: ms.mamba_scan(*args[:5], chunk=chunk, h0=args[5])  # noqa: E731
+            if kernel == "mamba_scan_train":
+                call = lambda: ms._launch(*args, train=True)[:2]  # noqa: E731
+            else:
+                call = lambda: ms.mamba_scan(*args[:5], chunk=chunk, h0=args[5])  # noqa: E731
             plain = ms.mamba_scan_plain(*args[:5], chunk=chunk, h0=args[5])
             tols = [cs.scan_tol(p) for p in plain]
             shape = f"{label} float32 B{B} S{S} di{width} ds{depth}"

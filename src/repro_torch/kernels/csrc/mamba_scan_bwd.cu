@@ -16,48 +16,65 @@
 // last first, this kernel recomputes the span's CK old states forward from the saved one
 // into registers and then sweeps the span's tokens backwards.
 //
-// Design.  A block holds CB = 64 channels of one batch row; each thread one channel and
-// NS = 4 of its states (L = ds / 4 neighbouring lanes share a channel), the layout of the
-// forward, so the saved states, h0's gradient and dA load and store as one 16-byte chunk
-// a lane.  Tiles of CK tokens of u, delta, dy (the block's channels) and B, C are staged
-// with cp.async, last span first, double buffered (28 KB at ds = 16), and zero-filled past
-// the sequence and past di: there delta = 0 makes a token an identity (decay 1, drive 0,
-// no gradient but the carry), so the loop runs in whole spans and only the stores look at
-// the ends.  The tokens go in groups of UB = 8:
-// - du and ddelta are sums over a channel's states: a group's 2 UB partials (B.g and
-//   A a h_t-1.g per token) meet in one reduce-scatter across the channel's L lanes, as the
-//   forward's y partials do, after which each lane holds both sums of 2 UB / L / 2 tokens
-//   and stores du_t = delta_t B.g and ddelta_t = A a h.g + u_t B.g;
-// - dB and dC are sums over all di channels: a group's 2 UB NS partials a thread meet in a
-//   reduce-scatter across the warp's channels (the lanes that differ above the channel's
-//   own), each warp's sums go to shared memory, and the block adds its warps in a fixed
-//   order and writes one partial per block of channels, [B, di / CB, S, ds] each, which
-//   the wrapper adds with one torch.sum;
+// Design (redesigned for Hopper).  A block holds CB = 64 channels of one batch row; each thread one
+// channel and NS = 4 of its states (L = ds / 4 neighbouring lanes share a channel), the layout of
+// the forward, so the saved states, h0's gradient and dA load and store as one 16-byte chunk a
+// lane.  256 threads at most 128 registers and 56 KB of shared memory (at ds 16; opted into once
+// per instantiation, csrc/opt_in.cuh) make two blocks an SM, 16 warps to hide each other's
+// latency.  Per span of CK tokens, the last first:
+// - staging: u, delta, dy (the block's channels), B and C, and the span's saved state come in by
+//   cp.async with the tile, double buffered, zero-filled past the sequence and past di: there
+//   delta = 0 makes a token an identity (decay 1, drive 0, no gradient but the carry), so the
+//   loop runs in whole spans and only the stores look at the ends;
+// - recompute: the span's CK old states into registers (hs, 64 of them), then the sweep over its
+//   tokens backwards, forming each decay again (keeping them needs 64 more registers, and keeping
+//   half a span's at a time costs a third recompute pass);
+// - du and ddelta are sums over a channel's states: UD = 4 tokens' B.g and A a h_t-1.g meet in one
+//   reduce-scatter across the channel's L lanes, after which each lane stores both sums of
+//   2 UD / L / 2 tokens: du_t = delta_t B.g, ddelta_t = A a h.g + u_t B.g;
+// - dB and dC are sums over all di channels.  A token's 2 NS items a thread halve across the
+//   warp's channels in three steps (lane bits 16, 8, 4), one item a lane left, which goes to
+//   shared memory for the whole span.  The first step needs no select: lanes 16 apart keep their
+//   states in swapped slots (B and C are staged a second time with each chunk's halves swapped,
+//   and A, the saved state, dh_fin, dA and dh0 swap in registers).  After the span's sweep (a
+//   second barrier) the block adds each output's 8 warps in a fixed order and writes one partial
+//   per block of channels, [B, di / CB, S, ds] each, which the wrapper adds with one torch.sum;
 // - dA sums over the batch and the tokens: each thread accumulates its own states over the
 //   tokens and writes one partial per batch row, [B, di, ds], added by the wrapper.
 // No atomics: two calls give the same bits.
 //
-// Decays.  Both sweeps form exp(delta A) as the forward does, ex2.approx(delta A log2 e)
-// (mamba_scan_common.cuh), so it recomputes the old states by the forward's own operations.  The
-// carry g runs over the whole sequence, and at jamba's slowest channels (delta near 1e-3,
-// A = -1) it remembers about a thousand tokens, so each exponential's rounding adds up:
-// the gradients are held against exact ones (mamba_scan_bwd_plain in f64), not against the
-// f32 plain version, whose own rounding is of the same size.  At f32 B4 S2048 di8192 ds16
-// on an H100 (scripts/scan_bwd_precision.py), ddelta and dh0, the gradients furthest from
-// exact, came within 1.2e-4 and 7.1e-5 of their rms, where the accurate expf gave 2.8e-4
-// and 1.3e-4 and the f32 plain version (expf too) the same; du, dA, dB and dC came a little
-// further than with expf (at most 5.8e-5 against 2.4e-5); 2.12 ms a call against 2.33 ms
-// with expf in the same call.
+// Cost, and what lost.  The ds-16 instantiation's span body is ~1,580 instructions a thread for
+// 64 state-tokens (~25 each; ~29 with the span's staging and sums).  At f32 B4 S2048 di8192 ds16
+// on an H100 80GB HBM3 at 700 W a call takes 1.46 ms (the kernel 1.39-1.40); a one-block,
+// 229-register layout of the same algebra, five barriers a span and the saved state loaded in
+// front of the recompute, took 2.12.  Without the dB / dC steps the call takes 0.33 ms less,
+// without du / ddelta's 0.17, without the recompute 0.22, without the sweep's exponentials 0.03
+// (scripts/scan_variants.py's scan_bwd_no_* probes).  Slower there (its scan_bwd_* variants): one block
+// an SM (1.84 ms), 128 channels a block (1.45, and spills), the saved state loaded instead of staged
+// (0.01-0.06 ms slower in every call).  Slower too, and not kept (PERF.md): kept decays over half
+// spans (1.52), dB / dC in one or two steps leaving 32 or 16 items an output to shared memory (1.55,
+// 1.48), the other two steps freed of selects by staging B and C in four orders, du / ddelta summed
+// in shared memory or two tokens at a time, the warps' dB / dC sums moved beside the next span's
+// recompute, two channels of 2 states a thread (1.48-1.62: half the dB / dC items, but du / ddelta
+// summed over 8 lanes), and clusters of 2 or 8 blocks adding dB / dC in distributed shared memory
+// (1.59-1.94: fewer blocks resident, and each waits for its cluster every span).
+//
+// Decays.  The recompute and the sweep form exp(delta A) as the forward does,
+// ex2.approx(delta A log2 e) (mamba_scan_common.cuh), so the old states are recomputed by the
+// forward's own operations and the sweep's decay is bitwise the recompute's.  The carry g runs
+// over the whole sequence, and at jamba's slowest channels (delta near 1e-3, A = -1) it
+// remembers about a thousand tokens, so each exponential's rounding adds up: the gradients are
+// held against exact ones (mamba_scan_bwd_plain in f64), not against the f32 plain version, whose
+// own rounding is of the same size (scripts/scan_bwd_precision.py gives each gradient's distance).
 //
 // Bound.  Per token, channel and state: recomputing the state (delta A, the exponential,
 // (delta u) B, the state's multiply-add: 4 FLOP and one exp) and the gradient (g's
 // multiply-add, B.g's, g a, g a h, A's and delta's multiply-adds into ddelta and dA,
 // g delta u, h_t dy, the carry a g, the adds of dB and dC across channels: 17 FLOP), 21 FLOP
-// and one exp, if the decays of the recompute were kept (this kernel forms each decay twice,
-// to keep its registers to the states).  At f32 B4 S2048 di8192 ds16: 22.5 GFLOP, 0.337 ms at
-// 67 TFLOP/s; the 1.07 G exponentials 0.256 ms on the special-function units; the bytes
-// (u, delta, dy and the saved states read, du and ddelta written: 1.61 GB; B, C, A, dA, dB,
-// dC small) 0.482 ms.  So 0.482 ms, bound by the bytes.
+// and one exp, if the decays of the recompute were kept.  At f32 B4 S2048 di8192 ds16:
+// 22.5 GFLOP, 0.337 ms at 67 TFLOP/s; the 1.07 G exponentials 0.256 ms on the special-function
+// units; the bytes (u, delta, dy and the saved states read, du and ddelta written: 1.61 GB; B,
+// C, A, dA, dB, dC small) 0.482 ms.  So 0.482 ms, bound by the bytes.
 //
 // Inputs, all float32, contiguous and 16-byte aligned: u, delta, dy [B, S, di]; A [di, ds];
 // B, C [B, S, ds]; h_chk [B, ceil(S / CK), di, ds]; dh_fin [B, di, ds] (optional).  Outputs,
@@ -69,12 +86,15 @@
 #include <stdint.h>
 
 #include "mamba_scan_common.cuh"  // CK, LOG2E, ex2
+#include "opt_in.cuh"             // opt_in_once, MAX_DEVICES
 
 namespace {
 
-constexpr int NS = 4;    // states per thread: one 16-byte chunk
-constexpr int CB = 64;   // channels per block
-constexpr int UB = 8;    // tokens per group: one reduce-scatter of each kind
+constexpr int NS = 4;               // states per thread: one 16-byte chunk
+constexpr int CB = 64;              // channels per block
+constexpr int UD = 4;               // tokens of one du / ddelta reduce-scatter
+constexpr int MIN_BLOCKS = 2;       // blocks an SM: at most 128 registers a thread
+constexpr float LN2 = 0.6931471805599453f;
 
 template <int DS>
 struct Geometry {
@@ -82,16 +102,15 @@ struct Geometry {
   static constexpr int LG = 32 / L;                 // channels of a warp
   static constexpr int NW = CB / LG;                // warps of a block
   static constexpr int NT = 32 * NW;
-  static constexpr int KEEP = 2 * UB / L;           // (token, du | ddelta) sums a lane holds after its channel's reduction
-  static constexpr int NBC = 2 * UB * NS;           // a thread's dB and dC partials of a group
-  static constexpr int KEEPC = NBC / LG;            // of which it holds after its warp's reduction
-  static constexpr int UD = CK * CB, BC = CK * DS;  // floats of u (delta, dy) and of B (C) in a tile
-  static constexpr int STAGE = 3 * UD + 2 * BC;
-  static constexpr int RED = NW * UB * 2 * DS;      // each warp's dB and dC sums of a group
+  static constexpr int KEEP = 2 * UD / L;           // (token, du | ddelta) sums a lane holds after its channel's reduction
+  static constexpr int R = 4 / L;                   // lanes of a warp that hold the same dB / dC item after its 3 steps
+  static constexpr int TILE = CK * CB, BC = CK * DS, HS = CB * DS;  // floats of u (delta, dy), B (C), the saved state
+  static constexpr int STAGE = 3 * TILE + 4 * BC + HS;  // B and C in two state orders each
+  static constexpr int RED = NW * CK * 32;          // each lane's dB / dC item of a span's tokens
   static constexpr int SMEM = (2 * STAGE + RED) * 4;
-  static_assert(L >= 1 && L <= UB && KEEP % 2 == 0 && NBC % LG == 0 && CK % UB == 0, "groups");
-  static_assert(CK * CB % NT == 0 && (CK * CB / 4) % NT == 0, "staging");
-  static_assert(SMEM <= 48 * 1024, "within the default dynamic shared memory, no opt-in");
+  static_assert(L >= 1 && L <= 4 && KEEP % 2 == 0 && CK % UD == 0, "groups");
+  static_assert(NT * NS == HS && CK * CB % NT == 0 && (CK * CB / 4) % NT == 0, "staging");
+  static_assert(MIN_BLOCKS * (SMEM + 1024) <= 227 * 1024, "shared memory for MIN_BLOCKS blocks an SM");
 };
 
 __device__ __forceinline__ void load4(const float* p, float (&o)[NS]) {
@@ -106,6 +125,10 @@ __device__ __forceinline__ void store4(float* p, const float (&o)[NS]) {
 __device__ __forceinline__ void cp_async16(float* dst, const float* src, bool in) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src), "r"(in ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async8(float* dst, const float* src, bool in) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(s), "l"(src), "r"(in ? 8 : 0));
 }
 __device__ __forceinline__ void cp_async4(float* dst, const float* src, bool in) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
@@ -132,49 +155,62 @@ __device__ __forceinline__ void reduce_scatter(float (&p)[NI], int lane) {
   }
 }
 
+// A thread's state slot s holds state s ^ 2 of its four when `swap` (lanes 16 .. 31): the halves of o swapped.
+__device__ __forceinline__ void swap_halves(float (&o)[NS], bool swap) {
+#pragma unroll
+  for (int s = 0; s < NS / 2; ++s) {
+    const float lo = o[s], hi = o[s + NS / 2];
+    o[s] = swap ? hi : lo;
+    o[s + NS / 2] = swap ? lo : hi;
+  }
+}
+
 template <int DS>
-__global__ void __launch_bounds__(Geometry<DS>::NT, 1) mamba_scan_bwd_kernel(
+__global__ void __launch_bounds__(Geometry<DS>::NT, MIN_BLOCKS) mamba_scan_bwd_kernel(
     const float* __restrict__ u, const float* __restrict__ delta, const float* __restrict__ A,
     const float* __restrict__ Bm, const float* __restrict__ Cm, const float* __restrict__ h_chk,
     const float* __restrict__ dy, const float* __restrict__ dh_fin, float* __restrict__ du,
     float* __restrict__ ddelta, float* __restrict__ dA_part, float* __restrict__ dB_part,
     float* __restrict__ dC_part, float* __restrict__ dh0, int seq, int di) {
   using Gm = Geometry<DS>;
-  constexpr int L = Gm::L, LG = Gm::LG, NT = Gm::NT, KEEP = Gm::KEEP, KEEPC = Gm::KEEPC;
+  constexpr int L = Gm::L, NT = Gm::NT, KEEP = Gm::KEEP;
   extern __shared__ __align__(16) float smem[];
-  float* red = smem + 2 * Gm::STAGE;  // [NW][UB][2][DS]: each warp's dB (0) and dC (1) sums of a group
+  float* red = smem + 2 * Gm::STAGE;  // [NW][CK][32]: each lane's dB / dC item of the span's tokens
 
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  const int sg = lane % L;                 // states sg * 4 .. sg * 4 + 3 of ...
-  const int cl = warp * LG + lane / L;     // ... channel ch0 + cl
+  const int sg = lane % L;                 // states sg * 4 .. sg * 4 + 3 (slot s: state s ^ 2 if swap) of ...
+  const bool swap = lane & 16;
+  const int cl = tid / L;                  // ... channel ch0 + cl; the thread's 16 bytes of a saved state: tid * 4
   const int blk = blockIdx.x, b = blockIdx.y, ch0 = blk * CB, ch = ch0 + cl;
   const bool live = ch < di;
   const int nchunk = (seq + CK - 1) / CK, nblk = gridDim.x;
   const size_t row0 = (size_t)b * seq;     // token rows of this batch row
   const bool whole_chunks = di % 4 == 0;
 
-  float av[NS], a2[NS], carry[NS], dA[NS];  // A, A log2 e, a_t+1 g_t+1 (dh_fin past the end), dA
+  float a2[NS], carry[NS], dA[NS];  // A log2 e, a_t+1 g_t+1 (dh_fin past the end), dA
   const bool has_dhfin = dh_fin != nullptr;
   if (live) {
-    load4(A + (size_t)ch * DS + sg * NS, av);
+    load4(A + (size_t)ch * DS + sg * NS, a2);
     if (has_dhfin) load4(dh_fin + ((size_t)b * di + ch) * DS + sg * NS, carry);
   }
 #pragma unroll
   for (int s = 0; s < NS; ++s) {
-    if (!live) av[s] = 0.f;
-    a2[s] = av[s] * LOG2E;
+    a2[s] = live ? a2[s] * LOG2E : 0.f;
     if (!(live && has_dhfin)) carry[s] = 0.f;
     dA[s] = 0.f;
   }
+  swap_halves(a2, swap);
+  swap_halves(carry, swap);
 
   auto stage = [&](int q) {  // tile q holds span nchunk - 1 - q; one cp.async group, empty past the end
     if (q < nchunk) {
       float* us = smem + q % 2 * Gm::STAGE;
-      float* dts = us + Gm::UD;
-      float* dys = dts + Gm::UD;
-      float* bs = dys + Gm::UD;
-      float* cs = bs + Gm::BC;
-      const int t0 = (nchunk - 1 - q) * CK;
+      float* dts = us + Gm::TILE;
+      float* dys = dts + Gm::TILE;
+      float* bs = dys + Gm::TILE;  // B, then B with each chunk's 8-byte halves swapped
+      float* cs = bs + 2 * Gm::BC;  // C, the same
+      float* hsh = cs + 2 * Gm::BC;
+      const int c = nchunk - 1 - q, t0 = c * CK;
       if (whole_chunks) {
         constexpr int CH = CB / 4;
 #pragma unroll
@@ -206,8 +242,14 @@ __global__ void __launch_bounds__(Geometry<DS>::NT, 1) mamba_scan_bwd_kernel(
         if (e < BCH) {
           cp_async16(bs + t * DS + qd, Bm + g, in);
           cp_async16(cs + t * DS + qd, Cm + g, in);
+          cp_async8(bs + Gm::BC + t * DS + qd, Bm + g + 2, in);
+          cp_async8(bs + Gm::BC + t * DS + qd + 2, Bm + g, in);
+          cp_async8(cs + Gm::BC + t * DS + qd, Cm + g + 2, in);
+          cp_async8(cs + Gm::BC + t * DS + qd + 2, Cm + g, in);
         }
       }
+      // the span's saved state: each thread its own 16 bytes, zero past di
+      cp_async16(hsh + tid * NS, h_chk + (live ? (((size_t)b * nchunk + c) * di + ch) * DS + sg * NS : 0), live);
     }
     cp_async_commit();
   };
@@ -216,98 +258,109 @@ __global__ void __launch_bounds__(Geometry<DS>::NT, 1) mamba_scan_bwd_kernel(
   for (int q = 0; q < nchunk; ++q) {
     const int c = nchunk - 1 - q, t0 = c * CK, n = min(CK, seq - t0);
     cp_async_wait_all();
-    __syncthreads();  // this tile has landed, and every thread is done with the previous one
+    __syncthreads();  // this tile has landed, and every thread is done with the previous one and with red
     stage(q + 1);     // into the buffer the previous tile used
     const float* us = smem + q % 2 * Gm::STAGE;
-    const float* dts = us + Gm::UD;
-    const float* dys = dts + Gm::UD;
-    const float* bs = dys + Gm::UD;
-    const float* cs = bs + Gm::BC;
+    const float* dts = us + Gm::TILE;
+    const float* dys = dts + Gm::TILE;
+    const float* bs = dys + Gm::TILE + (swap ? Gm::BC : 0);  // in the thread's slot order
+    const float* cs = bs + 2 * Gm::BC;
+    const float* hsh = dys + Gm::TILE + 4 * Gm::BC;
 
-    // The span's old states h_t-1, t = t0 .. t0 + CK - 1, recomputed from the saved one.
+    // The span's old states h_t-1, t = t0 .. t0 + CK - 1, recomputed from the saved state by the forward's own
+    // operations.
     float hs[CK][NS];
     {
       float h[NS];
-      if (live) {
-        load4(h_chk + (((size_t)b * nchunk + c) * di + ch) * DS + sg * NS, h);
-      } else {
+      load4(hsh + tid * NS, h);
+      swap_halves(h, swap);
 #pragma unroll
-        for (int s = 0; s < NS; ++s) h[s] = 0.f;
-      }
-#pragma unroll
-      for (int i = 0; i < CK; ++i) {
+      for (int k = 0; k < CK; ++k) {
         float bq[NS];
-        load4(bs + i * DS + sg * NS, bq);
-        const float dt = dts[i * CB + cl], x = dt * us[i * CB + cl];
+        load4(bs + k * DS + sg * NS, bq);
+        const float dt = dts[k * CB + cl], x = dt * us[k * CB + cl];
 #pragma unroll
         for (int s = 0; s < NS; ++s) {
-          hs[i][s] = h[s];
+          if (k > 0) hs[k][s] = h[s];  // the span's first old state is its saved one
           h[s] = fmaf(ex2(dt * a2[s]), h[s], x * bq[s]);
         }
       }
     }
 
-    // The span's tokens backwards, a group of UB at a time, the last group first.
+    // The span's tokens backwards.
+    float pdu[2 * UD];  // item 2 j + 0: B.g, 2 j + 1: A log2 e a h_t-1 . g, of the group's token j
 #pragma unroll
-    for (int gi = CK / UB - 1; gi >= 0; --gi) {
-      float p[2 * UB];   // item 2 k + 0: B.g, 2 k + 1: A a h_t-1 . g, of token gi UB + k
-      float pbc[Gm::NBC];  // item (2 k + 0 | 1) NS + s: g delta u | h_t dy of state s, token gi UB + k
+    for (int k = CK - 1; k >= 0; --k) {
+      float bq[NS], cq[NS], pbc[2 * NS];  // slot s's g delta u at (s / 2) 4 + s % 2, its h_t dy 2 further
+      load4(bs + k * DS + sg * NS, bq);
+      load4(cs + k * DS + sg * NS, cq);
+      const float dt = dts[k * CB + cl], x = dt * us[k * CB + cl], dyt = dys[k * CB + cl];
+      float ho[NS];  // h_t-1; for the span's first token its saved state, read again rather than held
+      if (k == 0) {
+        load4(hsh + tid * NS, ho);
+        swap_halves(ho, swap);
+      } else {
 #pragma unroll
-      for (int k = UB - 1; k >= 0; --k) {
-        const int i = gi * UB + k;
-        float bq[NS], cq[NS];
-        load4(bs + i * DS + sg * NS, bq);
-        load4(cs + i * DS + sg * NS, cq);
-        const float dt = dts[i * CB + cl], x = dt * us[i * CB + cl], dyt = dys[i * CB + cl];
-        float pu = 0.f, pa = 0.f;
-#pragma unroll
-        for (int s = 0; s < NS; ++s) {
-          const float a = ex2(dt * a2[s]);
-          const float g = fmaf(cq[s], dyt, carry[s]);
-          const float ga = g * a;
-          const float gah = ga * hs[i][s];
-          pu = fmaf(g, bq[s], pu);
-          pa = fmaf(gah, av[s], pa);
-          dA[s] = fmaf(gah, dt, dA[s]);
-          pbc[(2 * k) * NS + s] = g * x;
-          pbc[(2 * k + 1) * NS + s] = fmaf(a, hs[i][s], x * bq[s]) * dyt;
-          carry[s] = ga;
-        }
-        p[2 * k] = pu;
-        p[2 * k + 1] = pa;
+        for (int s = 0; s < NS; ++s) ho[s] = hs[k][s];
       }
+      float pu = 0.f, pa = 0.f;
+#pragma unroll
+      for (int s = 0; s < NS; ++s) {
+        const float a = ex2(dt * a2[s]);  // the decay again, bitwise the recompute's
+        const float g = fmaf(cq[s], dyt, carry[s]);
+        const float ga = g * a;
+        const float gah = ga * ho[s];
+        pu = fmaf(g, bq[s], pu);
+        pa = fmaf(gah, a2[s], pa);
+        dA[s] = fmaf(gah, dt, dA[s]);
+        pbc[s / 2 * 4 + s % 2] = g * x;
+        pbc[s / 2 * 4 + 2 + s % 2] = (k + 1 < CK ? hs[k + 1][s] : fmaf(a, ho[s], x * bq[s])) * dyt;  // h_t
+        carry[s] = ga;
+      }
+      pdu[2 * (k % UD)] = pu;
+      pdu[2 * (k % UD) + 1] = pa;
 
-      // du and ddelta: the sums over the channel's states, KEEP / 2 tokens a lane.
-      reduce_scatter<L / 2, 1, UB>(p, lane);
+      // dB and dC of this token, over the warp's channels: lanes 16 apart hold the same states in swapped slots,
+      // so the first halving step needs no select; two more (lane bits 8, 4) select.  Each lane then writes its
+      // one item (slot bit 1 its own, then dB | dC, slot bit 0) to red.
 #pragma unroll
-      for (int j = 0; j < KEEP / 2; ++j) {
-        const int i = gi * UB + KEEP / 2 * sg + j;
-        if (live && i < n) {
-          const size_t o = (row0 + t0 + i) * di + ch;
-          du[o] = dts[i * CB + cl] * p[2 * j];
-          ddelta[o] = fmaf(us[i * CB + cl], p[2 * j], p[2 * j + 1]);
+      for (int j = 0; j < NS; ++j) pbc[j] += __shfl_xor_sync(0xffffffffu, pbc[j + NS], 16);
+      reduce_scatter<8, 4, 2>(pbc, lane);
+      red[(warp * CK + k) * 32 + lane] = pbc[0];
+
+      // du and ddelta of the group's UD tokens: the sums over the channel's states, KEEP / 2 tokens a lane.
+      if (k % UD == 0) {
+        reduce_scatter<L / 2, 1, UD>(pdu, lane);
+#pragma unroll
+        for (int j = 0; j < KEEP / 2; ++j) {
+          const int it = k + KEEP / 2 * sg + j;
+          if (live && it < n) {
+            const size_t o = (row0 + t0 + it) * di + ch;
+            du[o] = dts[it * CB + cl] * pdu[2 * j];
+            ddelta[o] = fmaf(us[it * CB + cl], pdu[2 * j], pdu[2 * j + 1] * LN2);
+          }
         }
       }
+    }
 
-      // dB and dC: the sums over the warp's channels, then over the warps in a fixed order.
-      reduce_scatter<16, L, Gm::NBC / 2>(pbc, lane);
+    // dB and dC of the span: each output's NW R items (the warps, and the lanes of a warp that differ in
+    // channel only) added in a fixed order, one partial per block of channels.
+    __syncthreads();
+    for (int e = tid; e < CK * 2 * DS; e += NT) {
+      const int i = e / (2 * DS), which = e / DS % 2, nn = e % DS, bit0 = nn % 2, bit1 = nn % NS / 2;
+      const int lane0 = nn / NS + (bit1 ? 16 : 0) + (which ? 8 : 0) + (bit0 ? 4 : 0);
+      const float* rp = red + i * 32 + lane0;
+      float acc[2] = {0.f, 0.f};
 #pragma unroll
-      for (int j = 0; j < KEEPC; ++j) {
-        const int item = lane / L * KEEPC + j, k = item / (2 * NS), which = item / NS % 2, s = item % NS;
-        red[((warp * UB + k) * 2 + which) * DS + sg * NS + s] = pbc[j];
-      }
-      __syncthreads();
-      for (int e = tid; e < UB * 2 * DS; e += NT) {
-        const int k = e / (2 * DS), which = e / DS % 2, nn = e % DS, i = gi * UB + k;
-        float acc = 0.f;
+      for (int w = 0; w < Gm::NW; ++w)
 #pragma unroll
-        for (int w = 0; w < Gm::NW; ++w) acc += red[((w * UB + k) * 2 + which) * DS + nn];
-        if (i < n) (which ? dC_part : dB_part)[(((size_t)b * nblk + blk) * seq + t0 + i) * DS + nn] = acc;
-      }
-      __syncthreads();  // red is free again
+        for (int r = 0; r < Gm::R; ++r) acc[w % 2] += rp[w * CK * 32 + r * L];
+      if (i < n) (which ? dC_part : dB_part)[(((size_t)b * nblk + blk) * seq + t0 + i) * DS + nn] = acc[0] + acc[1];
     }
   }
 
+  swap_halves(carry, swap);
+  swap_halves(dA, swap);
   if (live) {
     store4(dh0 + ((size_t)b * di + ch) * DS + sg * NS, carry);
     store4(dA_part + ((size_t)b * di + ch) * DS + sg * NS, dA);
@@ -320,6 +373,9 @@ cudaError_t launch(const float* u, const float* delta, const float* A, const flo
                    float* dA_part, float* dB_part, float* dC_part, float* dh0, int batch, int seq, int di,
                    cudaStream_t stream) {
   using Gm = Geometry<DS>;
+  static bool done[MAX_DEVICES] = {};  // one flag per instantiation and device
+  cudaError_t err = opt_in_once(mamba_scan_bwd_kernel<DS>, Gm::SMEM, done);
+  if (err != cudaSuccess) return err;
   const dim3 grid((di + CB - 1) / CB, batch);
   mamba_scan_bwd_kernel<DS><<<grid, Gm::NT, Gm::SMEM, stream>>>(u, delta, A, Bm, Cm, h_chk, dy, dh_fin, du,
                                                                  ddelta, dA_part, dB_part, dC_part, dh0, seq, di);

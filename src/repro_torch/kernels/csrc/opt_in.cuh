@@ -1,5 +1,6 @@
 // Raises a kernel's dynamic shared-memory limit once per device, for the kernels
-// that take more than the default 48 KB (flash_attention_bwd.cu, wkv6_bwd.cu).
+// that take more than the default 48 KB (flash_attention_bwd.cu, wkv6_bwd.cu,
+// mamba_scan_bwd.cu).
 // The attribute stays set for the process, and setting it on every launch was
 // seen to cost ~1.4 ms a launch on short calls (PERF.md §6).  Each caller keeps
 // one `static bool done[MAX_DEVICES]` per kernel; the build's digest covers this

@@ -56,9 +56,9 @@ def test_flash_sources_share_the_hopper_helpers(kernel):
         assert definition not in src
 
 
-@pytest.mark.parametrize("kernel", ("flash_attention_bwd", "wkv6_bwd"))
+@pytest.mark.parametrize("kernel", ("flash_attention_bwd", "wkv6_bwd", "mamba_scan_bwd"))
 def test_kernels_above_48_kb_share_the_opt_in_helper(kernel):
-    """Both kernels that take more than 48 KB of shared memory raise the limit through one helper, once per
+    """The kernels that take more than 48 KB of shared memory raise the limit through one helper, once per
     instantiation and device, and define no copy of it."""
     src = (_build.CSRC / f"{kernel}.cu").read_text()
     header = (_build.CSRC / "opt_in.cuh").read_text()

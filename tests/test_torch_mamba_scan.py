@@ -70,6 +70,27 @@ def _jax(*arrs):
     return tuple(jnp.asarray(a) for a in arrs)
 
 
+def _f64_recurrence(u, delta, A, Bm, Cm, h0):
+    """y [B,S,di] and the final state by the recurrence itself, token by token, in f64 numpy."""
+    u, delta, A, Bm, Cm = (x.astype(np.float64) for x in (u, delta, A, Bm, Cm))
+    h = np.zeros((u.shape[0], u.shape[2], A.shape[1])) if h0 is None else h0.astype(np.float64)
+    y = np.empty(u.shape)
+    for t in range(u.shape[1]):
+        h = np.exp(delta[:, t, :, None] * A) * h + (delta[:, t] * u[:, t])[..., None] * Bm[:, t, None, :]
+        y[:, t] = (h * Cm[:, t, None, :]).sum(-1)
+    return y, h
+
+
+def _sides_from_f64(port, jax_side, exact) -> str:
+    """Each side's max distance from the f64 recurrence, and the elements where the two sides part by more than
+    TOL: which side left the exact result."""
+    port, jax_side = np.asarray(port, np.float64), np.asarray(jax_side, np.float64)
+    apart = ~np.isclose(port, jax_side, atol=TOL["atol"], rtol=TOL["rtol"])
+    return (f"max |port - f64| {np.abs(port - exact).max():.3e}, max |jax - f64| {np.abs(jax_side - exact).max():.3e}; "
+            f"{int(apart.sum())} elements apart, there port {port[apart][:8]}, jax {jax_side[apart][:8]}, "
+            f"f64 {exact[apart][:8]}")
+
+
 @pytest.mark.parametrize("with_h0", [False, True], ids=["h0-absent", "h0-present"])
 @pytest.mark.parametrize("name", sorted(CASES))
 def test_plain_matches_ssm_chunked_scan(name, with_h0):
@@ -82,8 +103,24 @@ def test_plain_matches_ssm_chunked_scan(name, with_h0):
                                 h0=None if h0 is None else torch.from_numpy(h0))
     assert t_y.dtype == torch.float32 and t_y.shape == (B, S, di)
     assert t_h.dtype == torch.float32 and t_h.shape == (B, di, ds)
-    np.testing.assert_allclose(t_y.numpy(), np.asarray(j_y), **TOL)
-    np.testing.assert_allclose(t_h.numpy(), np.asarray(j_h), **TOL)
+    e_y, e_h = _f64_recurrence(u, delta, A, Bm, Cm, h0)
+    np.testing.assert_allclose(t_y.numpy(), np.asarray(j_y), **TOL, err_msg=_sides_from_f64(t_y, j_y, e_y))
+    np.testing.assert_allclose(t_h.numpy(), np.asarray(j_h), **TOL, err_msg=_sides_from_f64(t_h, j_h, e_h))
+
+
+@pytest.mark.parametrize("with_h0", [False, True], ids=["h0-absent", "h0-present"])
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_plain_matches_f64_recurrence(name, with_h0):
+    """The port's plain version alone against the recurrence in f64, at the same cases and tolerance: when the
+    comparison with JAX fails, this says whether the port's side is the one at fault."""
+    B, S, di, ds, chunk = CASES[name]
+    u, delta, A, Bm, Cm, h0 = _arrays(B, S, di, ds)
+    h0 = h0 if with_h0 else None
+    t_y, t_h = mamba_scan_plain(*_torch(u, delta, A, Bm, Cm), chunk=chunk,
+                                h0=None if h0 is None else torch.from_numpy(h0))
+    e_y, e_h = _f64_recurrence(u, delta, A, Bm, Cm, h0)
+    np.testing.assert_allclose(t_y.numpy(), e_y, **TOL)
+    np.testing.assert_allclose(t_h.numpy(), e_h, **TOL)
 
 
 @pytest.mark.parametrize("name", sorted(PALLAS_BLOCK_D))

@@ -11,8 +11,14 @@ and decays near 0 (large Δ·|A|).  ``mamba_scan`` with inputs that need grad
 goes through ``_MambaScanFn``, which on the CPU runs the plain forward and
 this backward; it is held against autograd of ``mamba_scan_plain``.  The CUDA
 kernels run only on a card (``tests/test_torch_scans_need_no_grad.py``,
-``gpu`` marker, and ``chip_smoke.py``).
+``gpu`` marker, and ``chip_smoke.py``); the backward kernel's ``gpu`` test below
+holds it against the exact gradients (this plain backward in f64) at
+``chip_smoke.py``'s gate, at small sizes: ds 4, 8 and 16, ragged S and di, with
+and without h0 and dh_fin, two calls bitwise equal.
 """
+
+import sys
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -22,7 +28,11 @@ import torch
 
 from repro.kernels.ref import mamba_scan_ref as jax_mamba_scan_ref
 from repro.models.mamba import ssm_chunked_scan
-from repro_torch.kernels.mamba_scan import CHECKPOINT, mamba_scan, mamba_scan_bwd_plain, mamba_scan_plain
+import repro_torch.kernels.mamba_scan as ms
+from repro_torch.kernels.mamba_scan import CHECKPOINT, mamba_scan, mamba_scan_bwd, mamba_scan_bwd_plain, mamba_scan_plain
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+import chip_smoke  # noqa: E402
 
 TOL = dict(atol=1e-4, rtol=1e-4)
 GRADS = ("du", "ddelta", "dA", "dB", "dC", "dh0")
@@ -196,3 +206,43 @@ def test_plain_bwd_in_f64_is_exact(name):
         torch.testing.assert_close(g, w, atol=1e-10 * rms, rtol=1e-10, msg=gname)
         assert g32.dtype == torch.float32
         torch.testing.assert_close(g32.double(), w, atol=TOL["atol"] * rms, rtol=TOL["rtol"], msg=gname)
+
+
+# the backward kernel on the card: B, S, di, ds, h0 and dh_fin given, near-zero decays
+GPU_CASES = {
+    "ds4-h0-dhfin": (2, 64, 64, 4, True, False),
+    "ds8": (2, 64, 128, 8, False, False),
+    "ds16-h0-dhfin": (2, 64, 128, 16, True, False),
+    "ds16-ragged-37": (2, 37, 128, 16, True, False),         # a last span of 5 tokens
+    "ds16-ragged-di-202": (2, 300, 202, 16, True, False),    # rows not whole 16-byte chunks, a last block of 10
+    "ds8-ragged-di-202": (1, 45, 202, 8, False, False),
+    "ds4-ragged-di-40": (1, 21, 40, 4, True, False),
+    "ds16-near-zero-decay": (2, 64, 128, 16, True, True),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", sorted(GPU_CASES))
+def test_cuda_kernel_matches_exact_gradients(name):
+    """The kernel fed by the forward's training form, against this plain backward in f64 at chip_smoke.py's gate
+    (mamba_bwd_tols: the f32 plain version's own max |error| plus 1e-4 x rms, rtol 1e-4); two calls bitwise equal."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    B, S, di, ds, carried, near_zero = GPU_CASES[name]
+    u, delta, A, Bm, Cm, h0, dy, dh_fin = (torch.from_numpy(x).cuda()
+                                           for x in _arrays(B, S, di, ds, seed=7, near_zero_decay=near_zero))
+    h0, dh_fin = (h0, dh_fin) if carried else (None, None)
+    _, _, h_chk = ms._launch(u, delta, A, Bm, Cm, h0, train=True)
+    before = mamba_scan_bwd.launches
+    got = mamba_scan_bwd(u, delta, A, Bm, Cm, h_chk, dy, dh_fin)
+    again = mamba_scan_bwd(u, delta, A, Bm, Cm, h_chk, dy, dh_fin)
+    torch.cuda.synchronize()
+    assert mamba_scan_bwd.launches == before + 2
+    plain = mamba_scan_bwd_plain(u, delta, A, Bm, Cm, h0, dy, dh_fin)
+    exact = mamba_scan_bwd_plain(*(None if x is None else x.double() for x in (u, delta, A, Bm, Cm, h0, dy, dh_fin)))
+    tols = chip_smoke.mamba_bwd_tols(exact, plain)
+    for gname, g, g2, e, p in zip(GRADS, got, again, exact, plain):
+        assert g.dtype == torch.float32 and g.shape == p.shape, gname
+        assert torch.equal(g, g2), f"{name} {gname}: two calls differ"
+        tol = tols[chip_smoke.SCAN_GRADS[GRADS.index(gname)]]
+        torch.testing.assert_close(g.double(), e, atol=tol["atol"], rtol=tol["rtol"], msg=f"{name} {gname}")
